@@ -83,8 +83,11 @@ class MemoryModel:
         if measured_bytes <= 0:
             return
         est = self.total(tokens_per_device, codes, ladder) / self.calibration
-        if est > 0:
-            self.calibration = measured_bytes / est
+        # a subnormal measurement underflows the ratio to 0, which would
+        # zero the calibration and divide by it on the next re-fit
+        scale = measured_bytes / est if est > 0 else 0.0
+        if scale > 0:
+            self.calibration = scale
 
     def measured_key(self, rung: int):
         return rung

@@ -184,6 +184,23 @@ def test_batch_scaler_same_decisions(ladder):
     assert tbs.TIER_BYTES == jbs.TIER_BYTES
 
 
+@pytest.mark.parametrize("measured", [
+    [5e-324, 1.0],
+    [1e-310, 0.0, 2e10, 5e-324, 3e8],
+    [0.0, 5e-324, 5e-324, 1e9],
+])
+def test_batch_scaler_subnormal_measurement_keeps_calibration(measured):
+    """A subnormal measured footprint carries no scale information: the
+    port keeps its calibration positive and every later re-fit finite."""
+    tcfg = tprec.TriAccelConfig(**dict(_cfg_kw("gpu"), mem_cap_bytes=0.4e9))
+    rungs = (16, 32, 48, 64)
+    tsc = tbs.BatchScaler(rungs, 1, _vision_model(tbs), tcfg, start_rung=32)
+    for i, m in enumerate(measured):
+        assert tsc.observe(i, measured_bytes=m) in rungs
+        assert tsc.model.calibration > 0
+        assert np.isfinite(tsc.model.total(tsc.microbatch))
+
+
 def test_measured_peak_bytes_is_none_on_the_cpu():
     out, peak = tbs.measured_peak_bytes(lambda: 7, "cpu")
     assert (out, peak) == (7, None)
