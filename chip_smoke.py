@@ -8,19 +8,32 @@ Phases (any failure raises and the script exits non-zero):
   1. the card (``nvidia-smi``), torch and CUDA versions;
   2. build every CUDA source under ``src/repro_torch/kernels/csrc`` with
      ``nvcc`` (all sources at once), print the seconds and the ptxas report;
-  3. hold each kernel against its plain PyTorch version on the card: at the
-     ResNet-18 slab shape of the main path (22,016 x 512, 11 layers, random
-     data with inf/NaN lanes) and over every ``fused_apply`` variant on a
-     small slab; time the kernel and the plain version with CUDA events and
-     compute the least time the card could take (``bound_ms``);
-  4. a correctness check of the whole step: one slab-resident train step
-     of ResNet-18 at batch 4 on the card (kernels) against the same step on
-     the CPU (plain versions), from the same weights and batch;
-  5. the main path: ``run_method("triaccel", "resnet18", steps=50,
-     batch0=32, device="cuda")``, with the kernels' launch counts read
-     around it;
-  6. where a step's time goes: ``torch.profiler`` over a few steps of the
-     same trainer, device time by kernel family and the idle share.
+  3. hold each kernel against its plain PyTorch version on the card, time
+     both with CUDA events, compute the least time the card could take
+     (``bound_ms``) and time one PyTorch call computing the same function
+     where there is one (``library_ms``):
+       - fused_stats / fused_apply at the ResNet-18 slab shape (22,016 x
+         512, 11 layers) and over every fused_apply variant, bitwise;
+       - qdq_cast over every variant and over all of smollm-135m's leaves
+         (the main path's tier-0 cast), bitwise;
+       - flash_attention over every variant at the test shapes and at the
+         main path's prefill (S 1024, 9/3 heads, head_dim 64, bf16);
+       - flash_decode over ragged lengths (0, 1, L, between) and at the
+         main path's decode (4 rows against a 2048-slot cache);
+  4. correctness of whole steps: one slab-resident train step of ResNet-18
+     at batch 4, and one prefill plus 4 teacher-forced decode steps of
+     smollm-135m at full width and 2 layers, each on the card against the
+     same on the CPU (plain versions), from the same weights;
+  5. the main paths, with the kernels' launch counts read around each:
+       - ``run_method("triaccel", "resnet18", steps=50, batch0=32)``;
+       - serving: ``ServeSession`` over smollm-135m at full width (30
+         layers), prompt 1024, cache 2048, rungs 1/2/4, tiers 1 then 0,
+         eight requests of 64 tokens in two waves; the launch counts must
+         equal 30 x prefills (flash_attention), 30 x decode steps
+         (flash_decode) and the tier-0 leaves (qdq_cast), and no attention
+         gate may fall back;
+  6. where the time goes: ``torch.profiler`` over a few ResNet-18 train
+     steps and over a few decode steps at rung 4.
 
 The last three lines are the ``kernels`` JSON line, the card's name and
 power limit, and ``{"ok": true, "device": {...}}``. Without a card (or
@@ -39,6 +52,7 @@ import sys
 import time
 from pathlib import Path
 
+import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parent
@@ -49,10 +63,17 @@ KERNELS = {
                     "src/repro/kernels/fused_update.py:122"),
     "fused_apply": (f"{CSRC}/fused_update.cu",
                     "src/repro/kernels/fused_update.py:317"),
+    "qdq_cast": (f"{CSRC}/qdq_cast.cu",
+                 "src/repro/kernels/qdq_cast.py:98"),
+    "flash_attention": (f"{CSRC}/flash_attention.cu",
+                        "src/repro/kernels/flash_attention.py:222"),
+    "flash_decode": (f"{CSRC}/flash_attention.cu",
+                     "src/repro/kernels/flash_attention.py:546"),
 }
 # published peaks of the H100 SXM (NVIDIA's data sheet): device memory
-# bytes/s and f32 operations/s outside the tensor cores
-PEAKS = {"H100": (3.35e12, 67e12)}
+# bytes/s, f32 operations/s outside the tensor cores, and bf16 tensor-core
+# operations/s (dense)
+PEAKS = {"H100": (3.35e12, 67e12, 989e12)}
 
 
 def log(*a):
@@ -79,9 +100,9 @@ def peaks(name: str):
     raise RuntimeError(f"no published peaks for {name!r}")
 
 
-def bound(nbytes: float, nops: float, bw: float, f32_ops: float):
+def bound(nbytes: float, nops: float, bw: float, ops_rate: float):
     """-> (least ms the card could take, "bytes" or "operations")."""
-    t_bytes, t_ops = nbytes / bw, nops / f32_ops
+    t_bytes, t_ops = nbytes / bw, nops / ops_rate
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
                                        else "operations")
 
@@ -151,9 +172,31 @@ def check_stats(view, dev, bw, f32_ops):
     for n, a, b in zip(names, got, want):
         if n in ("absmax", "nonfinite"):
             check(same(a, b), f"fused_stats {n}: {a} vs {b}")
-        else:        # another summation order: rtol 1e-5
+        elif n == "sum_sq":  # another order of non-negative terms: rtol 1e-5
             check(torch.allclose(a, b, rtol=1e-5, atol=1e-6),
                   f"fused_stats {n}: {a} vs {b}")
+    # A layer's sum of random-signed gradients cancels: a layer of ~1e6
+    # terms of 1e-3 sums to O(1) or less while any f32 summation order is
+    # off by O(1e-7) of the summed magnitudes. So each f32 sum (the kernel's
+    # and the plain version's) is held to an f64 sum of the same finite
+    # lanes within 2^-20 of the layer's sum of |g|, the conditioning of the
+    # sum, not of its (possibly near-zero) value.
+    fin = torch.where(torch.isfinite(g), g, 0.0).double()
+    ids = rl.reshape(-1).long()
+    truth = torch.zeros(L, dtype=torch.float64, device=dev).index_add_(
+        0, ids, fin.sum(dim=1))
+    mass = torch.zeros(L, dtype=torch.float64, device=dev).index_add_(
+        0, ids, fin.abs().sum(dim=1))
+    for who, v in (("kernel", got[0]), ("plain", want[0])):
+        off = (v.double() - truth).abs()
+        check(bool((off <= 2.0 ** -20 * mass).all()),
+              f"fused_stats sum ({who}): off the f64 sum by "
+              f"{off.tolist()} against sum|g| {mass.tolist()}")
+    log(f"fused_stats sum: kernel and plain off the f64 sum by at most "
+        f"{float((got[0].double() - truth).abs().max()):.3g} / "
+        f"{float((want[0].double() - truth).abs().max()):.3g} (sum|g| per "
+        f"layer {float(mass.min()):.3g}..{float(mass.max()):.3g}); kernel vs "
+        f"plain {float((got[0] - want[0]).abs().max()):.3g}")
     check(float(got[3].sum()) == 13.0, "fused_stats counts 13 non-finite")
     err = max(abs_err(a, b) for a, b in zip(got, want))
     lib = fu._lib()
@@ -176,7 +219,7 @@ def check_stats(view, dev, bw, f32_ops):
     log(f"fused_stats {rows}x512 f32 L={L}: kernel {ms:.4f} ms, plain "
         f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms ({by}), max|err| {err:.3g}")
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": b_ms, "bound_by": by}
+            "bound_ms": b_ms, "bound_by": by, "library_ms": None}
 
 
 def _apply_inputs(rows, L, dev, adam, seed):
@@ -287,7 +330,7 @@ def check_apply_main(view, dev, bw, f32_ops):
     log(f"fused_apply {rows}x512 sgdm/gpu/f32: kernel {ms:.4f} ms, plain "
         f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms ({by}), max|err| {err:.3g}")
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": b_ms, "bound_by": by}
+            "bound_ms": b_ms, "bound_by": by, "library_ms": None}
 
 
 # ------------------------------------------ phase 4: one step, two devices ---
@@ -401,62 +444,493 @@ def main_path(steps: int, batch0: int):
     return launches
 
 
-def profile_steps(batch0: int, warm: int = 6, steps: int = 5) -> None:
-    """Where a step's time goes: ``torch.profiler`` over ``steps`` steps of
-    the main path's trainer after ``warm`` steps, device time by kernel
-    family and the device's idle share of the host's wall time."""
+def _profile(run, steps: int, family, what: str) -> None:
+    """``torch.profiler`` over ``run()`` (``steps`` steps): device time by
+    ``family(kernel name)``, the union of the device intervals (busy), the
+    host gaps and the idle share of the host's wall time."""
     from torch.profiler import ProfilerActivity, profile
-    from repro_torch.train.paper_harness import make_trainer
-    trainer = make_trainer("triaccel", "resnet18", steps=50, batch0=batch0,
-                           device="cuda")[0]
-    trainer.run(warm)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        trainer.run(steps)
+        run()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     cuda = torch.autograd.DeviceType.CUDA
     kern = [e for e in prof.events() if e.device_type == cuda]
-    fam = {}
     spans = sorted((e.time_range.start, e.time_range.end) for e in kern)
     busy, end = 0.0, -1.0
     for a, b in spans:                   # union of the device intervals
         if b > end:
             busy += b - max(a, end)
             end = b
+    fam, top = {}, {}
     for e in kern:
-        n = e.name.lower()
-        key = ("fused update (this port's kernels)"
-               if "stats_partials" in n or "apply_kernel" in n
-               or "reduce_partials" in n else
-               "convolution / matmul" if any(
-                   w in n for w in ("conv", "gemm", "xmma", "cudnn", "wgrad",
-                                    "dgrad", "cutlass", "sm90")) else
-               "memcpy / memset" if "memcpy" in n or "memset" in n else
-               "reduction" if "reduce" in n else "elementwise / other")
-        fam[key] = fam.get(key, 0.0) + (e.time_range.end
-                                        - e.time_range.start)
-    log(f"profile, {steps} steps at rung {trainer.scaler.microbatch}: host "
-        f"{wall_us / steps / 1e3:.3f} ms a step, device busy "
-        f"{busy / steps / 1e3:.3f} ms a step, idle share "
+        us = e.time_range.end - e.time_range.start
+        key = family(e.name.lower())
+        fam[key] = fam.get(key, 0.0) + us
+        top[e.name] = top.get(e.name, 0.0) + us
+    log(f"profile, {what}: host {wall_us / steps / 1e3:.3f} ms a step, "
+        f"device busy {busy / steps / 1e3:.3f} ms a step, host gaps "
+        f"{(wall_us - busy) / steps / 1e3:.3f} ms a step, idle share "
         f"{1 - busy / wall_us:.3f}; {len(kern) / steps:.0f} device ops a "
         "step")
     for k, v in sorted(fam.items(), key=lambda kv: -kv[1]):
-        log(f"  {k}: {v / steps / 1e3:.3f} ms a step")
-    top = {}
-    for e in kern:
-        top[e.name] = top.get(e.name, 0.0) + (e.time_range.end
-                                              - e.time_range.start)
+        log(f"  {k}: {v / steps / 1e3:.4f} ms a step")
     for n, v in sorted(top.items(), key=lambda kv: -kv[1])[:8]:
-        log(f"    {v / steps / 1e3:8.3f} ms  {n[:100]}")
+        log(f"    {v / steps / 1e3:8.4f} ms  {n[:100]}")
+
+
+def profile_steps(batch0: int, warm: int = 6, steps: int = 5) -> None:
+    """Where a train step's time goes: ``steps`` steps of the main path's
+    trainer after ``warm`` steps."""
+    from repro_torch.train.paper_harness import make_trainer
+    trainer = make_trainer("triaccel", "resnet18", steps=50, batch0=batch0,
+                           device="cuda")[0]
+    trainer.run(warm)
+
+    def family(n):
+        if "stats_partials" in n or "apply_kernel" in n \
+                or "reduce_partials" in n:
+            return "fused update (this port's kernels)"
+        if any(w in n for w in ("conv", "gemm", "xmma", "cudnn", "wgrad",
+                                "dgrad", "cutlass", "sm90")):
+            return "convolution / matmul"
+        if "memcpy" in n or "memset" in n:
+            return "memcpy / memset"
+        return "reduction" if "reduce" in n else "elementwise / other"
+
+    _profile(lambda: trainer.run(steps), steps, family,
+             f"{steps} train steps at rung {trainer.scaler.microbatch}")
+
+
+# ------------------------------------ phase 3b: the serving kernels ---
+def close(got, want, what) -> float:
+    """An attention kernel's output against its plain version's, within
+    ``flash_attention.tolerance`` (the source's stated tolerance); returns
+    max |err|."""
+    from repro_torch.kernels.flash_attention import tolerance
+    g, w = got.float(), want.float()
+    check(bool(torch.isfinite(g).all()), f"{what}: non-finite output")
+    d = (g - w).abs()
+    lim = tolerance(got, want)
+    worst = int(torch.argmax(d / lim))
+    check(bool((d <= lim).all()),
+          f"{what}: max|err| {float(d.max())}; worst against its limit "
+          f"{float(g.flatten()[worst])} vs {float(w.flatten()[worst])}")
+    return float(d.max())
+
+
+def _lm_leaves():
+    """The floating leaves of smollm-135m's parameters, as shapes."""
+    from repro_torch import tree as tu
+    from repro_torch.configs import smollm_135m
+    from repro_torch.models.lm import lm_init
+    params = lm_init(torch.Generator(), smollm_135m.config(), device="meta")
+    return [tuple(x.shape) for x in tu.leaves(params)]
+
+
+def check_qdq(dev, bw, ops_rate):
+    """qdq_cast bitwise against its plain version over every variant
+    (ladders, codes, f32/bf16, tile-filling and ragged sizes, no / given /
+    too-small amax with the NaN rule), then at the main path's shapes:
+    the tier-0 cast of all of smollm-135m's leaves, timed whole."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import qdq_cast as qc
+    gen = torch.Generator(device=dev).manual_seed(5)
+    n = 0
+    for shape in ((512, 512), (37, 53), (30, 576, 9, 64)):
+        x32 = torch.randn(shape, generator=gen, device=dev) * 3.0
+        x32.view(-1)[:4] = torch.tensor([7e4, -1e-30, 448.0, 12.0])
+        for dtype in (torch.float32, torch.bfloat16):
+            x = x32.to(dtype)
+            for ladder in ("tpu", "gpu"):
+                for amax in (None, torch.tensor(9.5, device=dev),
+                             torch.tensor(0.5, device=dev)):
+                    for code in (0, 1, 2):
+                        got = ops.qdq_cast(x, code, ladder, amax)
+                        want = qc.qdq_cast_ref(x, code, ladder, amax)
+                        check(got.dtype == x.dtype, "qdq dtype")
+                        check(same(got, want), f"qdq_cast {shape} {dtype} "
+                              f"{ladder} amax={amax} code={code}")
+                        n += 1
+    small = torch.tensor([4.2, -5.0, 0.5], device=dev)
+    nan = ops.qdq_cast(small, 0, "tpu", torch.tensor(4.0, device=dev))
+    check(bool(torch.isnan(nan[:2]).all()) and not bool(torch.isnan(nan[2])),
+          "qdq_cast: NaN past 464 on the tpu ladder")
+    log(f"qdq_cast: {n} variants bitwise equal to the plain version")
+
+    # main path: every leaf of the full-width model, f32 in and out
+    xs = [torch.randn(s, generator=gen, device=dev) * 0.05
+          for s in _lm_leaves()]
+    err = 0.0
+    for x in xs:
+        got = ops.qdq_cast(x, 0, "tpu")
+        want = qc.qdq_cast_ref(x, 0, "tpu")
+        check(same(got, want), f"qdq_cast leaf {tuple(x.shape)}")
+        err = max(err, abs_err(got, want))
+    lib = qc._lib()
+    outs = [torch.empty_like(x) for x in xs]
+    scratch = torch.empty((1,), device=dev)
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def raw():          # the kernel alone: no checks, no allocation
+        for x, o in zip(xs, outs):
+            lib.tri_qdq_cast(x.data_ptr(), 0, x.numel(), 0, 1, None,
+                             scratch.data_ptr(), o.data_ptr(), stream)
+
+    amaxes = [x.abs().amax().reshape(1) for x in xs]
+
+    def raw_given():    # the single-phase form: each leaf's absmax given
+        for x, o, a in zip(xs, outs, amaxes):
+            lib.tri_qdq_cast(x.data_ptr(), 0, x.numel(), 0, 1, a.data_ptr(),
+                             scratch.data_ptr(), o.data_ptr(), stream)
+
+    ms = time_ms(raw, iters=10)
+    plain_ms = time_ms(lambda: [qc.qdq_cast_ref(x, 0, "tpu") for x in xs],
+                       iters=2, reps=3)
+    ms1 = time_ms(raw_given, iters=10)
+    plain1 = time_ms(lambda: [qc.qdq_cast_ref(x, 0, "tpu", a)
+                              for x, a in zip(xs, amaxes)], iters=2, reps=3)
+    elems = sum(x.numel() for x in xs)
+    b_ms, by = bound(8.0 * elems, 6.0 * elems, bw, ops_rate)
+    log(f"qdq_cast, tier-0 cast of {len(xs)} leaves ({elems} f32): kernel "
+        f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({by}); "
+        f"with each leaf's amax given (single phase): kernel {ms1:.4f} ms, "
+        f"plain {plain1:.4f} ms")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": by, "library_ms": None}
+
+
+def _segments(B, S, dev, seed):
+    g = torch.Generator().manual_seed(seed)
+    seg = torch.zeros((B, S), dtype=torch.int32)
+    for b in range(B):
+        for c in torch.randperm(S - 1, generator=g)[:3] + 1:
+            seg[b, int(c):] += 1
+    return seg.to(dev)
+
+
+def _sdpa(q, k, v, **kw):
+    """torch's own attention on (B, S, H, D) tensors: the yardstick, timed
+    here and used nowhere in the port. Grouped heads through
+    ``enable_gqa`` where this torch has it, else K/V repeated per head."""
+    import torch.nn.functional as F
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    try:
+        return F.scaled_dot_product_attention(qt, kt, vt, enable_gqa=True,
+                                              **kw)
+    except TypeError:
+        rep = q.shape[2] // k.shape[2]
+        return F.scaled_dot_product_attention(
+            qt, kt.repeat_interleave(rep, 1), vt.repeat_interleave(rep, 1),
+            **kw)
+
+
+def check_flash(dev, bw, tc_rate):
+    """The forward kernel against its plain version over every variant
+    (causal, not causal, window, segments, LSE; f32 and bf16) at the test
+    shapes, then at the main path's prefill: B 1, S 1024, 9 heads, kv 3,
+    head_dim 64, bf16, causal."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    gen = torch.Generator(device=dev).manual_seed(6)
+    err, n = 0.0, 0
+    cases = [(S, hk, D) for S in (256, 512) for hk in ((4, 2), (9, 3))
+             for D in (16, 64)]
+    for S, (H, K), D in cases:
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v = (torch.randn((2, S, h, D), generator=gen, device=dev
+                                   ).to(dtype) for h in (H, K, K))
+            for variant in ("causal", "noncausal", "window", "segments"):
+                seg = _segments(2, S, dev, S) if variant == "segments" \
+                    else None
+                kw = dict(causal=variant != "noncausal",
+                          window=100 if variant == "window" else 0)
+                o, lse = fa.flash_attention_cuda(q, k, v, seg, with_lse=True,
+                                                 **kw)
+                o_r, lse_r = fa.flash_attention_ref(q, k, v, seg,
+                                                    with_lse=True, **kw)
+                what = f"flash {S} {H}/{K} {D} {dtype} {variant}"
+                err = max(err, close(o, o_r, what))
+                check(bool((lse - lse_r).abs().max()
+                           <= 1e-5 * (1 + lse_r.abs().max())), what + " lse")
+                n += 1
+    torch.cuda.synchronize()
+    log(f"flash_attention: {n} variants within tolerance "
+        f"(max|err| {err:.3g})")
+
+    B, S, H, K, D = 1, 1024, 9, 3, 64
+    q, k, v = (torch.randn((B, S, h, D), generator=gen, device=dev
+                           ).to(torch.bfloat16) for h in (H, K, K))
+    got = ops.flash_attention(q, k, v, causal=True)
+    want = fa.flash_attention_ref(q, k, v, causal=True)
+    err = max(err, close(got, want, "flash main shape"))
+    lib = fa._lib()
+    o = torch.empty_like(q)
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def raw():
+        lib.tri_flash_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), None,
+                          o.data_ptr(), None, 1, B, S, H, K, D, D, 1, 0,
+                          D ** -0.5, stream)
+
+    ms = time_ms(raw, iters=20)
+    plain_ms = time_ms(lambda: fa.flash_attention_ref(q, k, v), iters=3)
+    lib_ms = time_ms(lambda: _sdpa(q, k, v, is_causal=True), iters=20)
+    nbytes = 2 * (2 * B * S * H * D + 2 * B * S * K * D)
+    pairs = B * H * S * (S + 1) / 2            # causal pairs this run needs
+    b_ms, by = bound(nbytes, pairs * 4 * D, bw, tc_rate)
+    log(f"flash_attention B{B} S{S} H{H}/K{K} D{D} bf16 causal: kernel "
+        f"{ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound "
+        f"{b_ms:.5f} ms ({by})")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": by, "library_ms": lib_ms}
+
+
+def check_decode(dev, bw, tc_rate):
+    """The ragged decode kernel against its plain version at the test
+    shapes (lengths 0, 1, L and between; f32 and bf16) and at the main
+    path's: B 4 against a 2048-slot bf16 cache, live lengths 1024-1088."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    gen = torch.Generator(device=dev).manual_seed(7)
+    err, n = 0.0, 0
+    for (H, K), D, L in (((4, 2), 16, 256), ((9, 3), 64, 256),
+                         ((9, 3), 64, 2048)):
+        for dtype in (torch.float32, torch.bfloat16):
+            B = 6
+            q = torch.randn((B, 1, H, D), generator=gen, device=dev).to(dtype)
+            k, v = (torch.randn((B, L, K, D), generator=gen, device=dev
+                                ).to(dtype) for _ in range(2))
+            lens = torch.tensor([0, 1, L, 77, L // 2, L - 1],
+                                dtype=torch.int32, device=dev)
+            got = fa.flash_decode_cuda(q, k, v, lens)
+            want = fa.flash_decode_ref(q, k, v, lens)
+            err = max(err, close(got, want,
+                                 f"decode {H}/{K} {D} L{L} {dtype}"))
+            check(bool((got[0] == 0).all()), "decode: length 0 gives 0")
+            n += 1
+    log(f"flash_decode: {n} variants within tolerance (max|err| {err:.3g})")
+
+    B, L, H, K, D = 4, 2048, 9, 3, 64
+    q = torch.randn((B, 1, H, D), generator=gen, device=dev
+                    ).to(torch.bfloat16)
+    k, v = (torch.randn((B, L, K, D), generator=gen, device=dev
+                        ).to(torch.bfloat16) for _ in range(2))
+    lens = torch.tensor([1088, 1071, 1040, 1024], dtype=torch.int32,
+                        device=dev)
+    got = ops.flash_decode(q, k, v, lens)
+    want = fa.flash_decode_ref(q, k, v, lens)
+    err = max(err, close(got, want, "decode main shape"))
+    lib = fa._lib()
+    o = torch.empty_like(q)
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def raw():
+        lib.tri_flash_decode(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                             lens.data_ptr(), o.data_ptr(), 1, B, L, H, K, D,
+                             D, D ** -0.5, stream)
+
+    ms = time_ms(raw, iters=50)
+    plain_ms = time_ms(lambda: fa.flash_decode_ref(q, k, v, lens), iters=5)
+    mask = (torch.arange(L, device=dev)[None, :] < lens[:, None]
+            ).reshape(B, 1, 1, L)
+    lib_ms = time_ms(lambda: _sdpa(q, k, v, attn_mask=mask), iters=50)
+    live = int(lens.sum())
+    nbytes = 2 * (2 * B * H * D + 2 * live * K * D) + 4 * B
+    b_ms, by = bound(nbytes, live * H * 4 * D, bw, tc_rate)
+    log(f"flash_decode B{B} L{L} H{H}/K{K} D{D} bf16, live {lens.tolist()}: "
+        f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, "
+        f"bound {b_ms:.5f} ms ({by})")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": by, "library_ms": lib_ms}
+
+
+# ------------------------------- phase 4b: LM serving, card vs CPU ---
+def check_lm_against_cpu(layers: int = 2, prompt: int = 1024,
+                         total: int = 2048, steps: int = 4):
+    """One prefill plus ``steps`` teacher-forced decode steps of
+    smollm-135m at full width and ``layers`` layers, bf16 weights from one
+    seeded init, on the card (kernels) and on the CPU (plain versions).
+    Logits within 4 % of their largest magnitude (the bf16 rounding spread
+    the CPU parity test sees against the reference,
+    tests/test_torch_lm_serve.py), greedy tokens reported."""
+    import dataclasses
+    from repro_torch import tree as tu
+    from repro_torch.configs import smollm_135m
+    from repro_torch.models import lm
+    from repro_torch.serve.engine import scatter_prefill
+    cfg = smollm_135m.config()
+    seg = ((cfg.stack.segments[0][0], layers),)
+    cfg = dataclasses.replace(cfg, stack=dataclasses.replace(
+        cfg.stack, segments=seg))
+    params = lm.lm_init(torch.Generator().manual_seed(3), cfg)
+    params = tu.tree_map(lambda x: x.to(torch.bfloat16), params)
+    g = torch.Generator().manual_seed(4)
+    toks = torch.randint(0, cfg.vocab_size, (1, prompt), generator=g,
+                         dtype=torch.int32)
+    feed = torch.randint(0, cfg.vocab_size, (steps, 1), generator=g,
+                         dtype=torch.int32)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        p = tu.tree_map(lambda x: x.to(dev), params)
+        logits = []
+        with torch.no_grad():
+            lg, pre = lm.lm_prefill(p, {"tokens": toks.to(dev)}, cfg)
+            logits.append(lg.float().cpu())
+            caches = scatter_prefill(
+                lm.lm_init_cache(cfg, 1, total, device=dev), pre, 0)
+            for i in range(steps):
+                lg, caches = lm.lm_decode_step(
+                    p, feed[i].to(dev), caches,
+                    torch.tensor([prompt + i], device=dev), cfg)
+                logits.append(lg.float().cpu())
+        out[dev] = torch.stack(logits)
+    ref, got = out["cpu"], out["cuda"]
+    gap = float((got - ref).abs().max())
+    lim = 0.04 * float(ref.abs().max())
+    same_top = (got.argmax(-1) == ref.argmax(-1)).float().mean()
+    log(f"smollm-135m x{layers} layers, prefill {prompt} + {steps} decode "
+        f"steps, card vs CPU: max|dlogit| {gap:.4g} (limit {lim:.4g}, max "
+        f"|logit| {float(ref.abs().max()):.4g}), same argmax "
+        f"{float(same_top):.2f}")
+    check(bool(torch.isfinite(got).all()), "finite logits on the card")
+    check(gap <= lim, f"card vs CPU logits {gap} > {lim}")
+
+
+# ------------------------------------ phase 5b: the serving main path ---
+def serve_main_path(seed: int = 0):
+    """The serving main path: ServeSession over smollm-135m at full width,
+    prompt 1024, cache 2048, rungs 1/2/4, tiers 1 then 0 (fp8 pinned after
+    16 decode steps), eight requests of 64 tokens in two waves: four up
+    front, three steps, four more. tok/s counts every generated token over
+    the serving wall time from the first submit to the last token."""
+    import warnings
+    from repro_torch.kernels import ops
+    from repro_torch.models.registry import get_task
+    from repro_torch.serve import ServeConfig, ServeSession
+    task = get_task("smollm-135m")
+    n_layers, vocab = task.cfg.num_layers, task.cfg.vocab_size
+    cfg = ServeConfig(prompt_len=1024, total_len=2048, rungs=(1, 2, 4),
+                      tiers=(0, 1), ladder="tpu", max_new_tokens=64,
+                      schedule="fifo", seed=seed)
+    prompts = np.random.default_rng(seed).integers(0, vocab,
+                                                   (8, cfg.prompt_len))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    ops.WARNED_FALLBACKS.clear()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        t0 = time.perf_counter()
+        sess = ServeSession(task, cfg)
+        t1 = time.perf_counter()
+        sess.warm()
+        warm_runs = dict(sess.engine.runs)
+        t2 = time.perf_counter()
+        for p in prompts[:4]:
+            sess.submit({"tokens": p})
+        for _ in range(3):
+            sess.step()
+        for p in prompts[4:]:
+            sess.submit({"tokens": p})
+        while sess.engine.runs["decode"] - warm_runs["decode"] < 16:
+            sess.step()
+        sess.set_tier(0)
+        stats = sess.run()
+        torch.cuda.synchronize()
+        serve_s = time.perf_counter() - t2
+    launches = dict(ops.LAUNCHES)
+    runs = dict(sess.engine.runs)
+    fallbacks = [str(w.message) for w in caught
+                 if "kernel gate failed" in str(w.message)]
+    check(not fallbacks and not ops.WARNED_FALLBACKS,
+          f"fallback warnings on the main path: {fallbacks}")
+    reqs = sess.results()
+    check(len(reqs) == 8 and all(r.status == "done" for r in reqs.values()),
+          "all eight requests done")
+    for r in reqs.values():
+        check(len(r.tokens) == cfg.max_new_tokens and all(
+            0 <= t < vocab for t in r.tokens), f"request {r.rid} tokens")
+    decode_steps = sum(len(sess.lat.samples(r, t)) for r in cfg.rungs
+                       for t in cfg.tiers)
+    n_warm = len(cfg.rungs) * len(cfg.tiers)
+    check(runs["admit"] == 8 + n_warm, f"admits {runs['admit']}")
+    check(runs["decode"] == decode_steps + n_warm, f"decodes {runs}")
+    check(launches["flash_attention"] == n_layers * runs["admit"],
+          f"flash_attention launches {launches} vs {runs}")
+    check(launches["flash_decode"] == n_layers * runs["decode"],
+          f"flash_decode launches {launches} vs {runs}")
+    check(launches["qdq_cast"] == len(_lm_leaves()),
+          f"qdq_cast launches {launches} vs the tier-0 leaves")
+    check(any(t == 0 for _, t in stats["tier_history"]), "fp8 tier decoded")
+    check(max(r for _, r in stats["rung_history"]) == 4, "rung reached 4")
+    tokens = stats["decoded_tokens"]
+    log(f"serving main path: smollm-135m ({n_layers} layers), 8 requests x "
+        f"{cfg.max_new_tokens} tokens, prompt {cfg.prompt_len}, cache "
+        f"{cfg.total_len}: init {t1 - t0:.2f} s, warm {t2 - t1:.2f} s "
+        f"({sess.compile_count} paths), serving {serve_s:.3f} s")
+    log(f"  {tokens / serve_s:.1f} tok/s ({tokens} tokens, {stats['steps']} "
+        f"steps, {decode_steps} decode steps), TTFT p50 "
+        f"{stats['ttft_s_p50'] * 1e3:.1f} ms p99 "
+        f"{stats['ttft_s_p99'] * 1e3:.1f} ms, peak allocated "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB")
+    log(f"  rung history {stats['rung_history']}, tier history "
+        f"{stats['tier_history']}, measured bytes "
+        f"{ {k: int(v) for k, v in sess.mm.measured.items()} }")
+    lat = {f"{r}/{t}": round(float(np.median(sess.lat.samples(r, t))) * 1e3,
+                             3)
+           for r in cfg.rungs for t in cfg.tiers if sess.lat.samples(r, t)}
+    log(f"  median decode step ms by rung/tier {lat}")
+    log(f"  path runs {runs} (warm-ups {warm_runs}), launches {launches}")
+    log(f"  request 0 tokens {reqs[0].tokens[:16]} ...")
+    return sess, launches
+
+
+def profile_decode(sess, steps: int = 5) -> None:
+    """Where a decode step's time goes: ``steps`` decode steps at rung 4
+    (four fresh requests admitted first)."""
+    rng = np.random.default_rng(11)
+    for _ in range(4):
+        sess.submit({"tokens": rng.integers(0, sess.task.cfg.vocab_size,
+                                            (sess.cfg.prompt_len,))},
+                    max_new_tokens=steps + 4)
+    sess.step()              # admits all four, one decode step
+    sess.step()
+
+    def family(n):
+        if "decode_kernel" in n:
+            return "flash_decode (this port's kernel)"
+        if any(w in n for w in ("gemm", "gemv", "nvjet", "xmma", "cutlass",
+                                "sm90", "splitk")):
+            return "matmul (projections, FFN, readout)"
+        if "index" in n:
+            return "cache writes, gathers (index kernels)"
+        if "copy" in n or "memcpy" in n or "memset" in n:
+            return "casts and copies"
+        if "reduce" in n:
+            return "reduction (norms, argmax)"
+        return "elementwise (RoPE, norms, SiLU, residuals)"
+
+    def run():
+        for _ in range(steps):
+            sess.step()
+
+    _profile(run, steps, family,
+             f"{steps} decode steps at rung {sess.rung} tier {sess.tier}")
+    sess.run()
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--steps", type=int, default=50)
+    ap.add_argument("--steps", type=int, default=50,
+                    help="ResNet-18 main-path steps")
     ap.add_argument("--batch0", type=int, default=32)
+    ap.add_argument("--kernels-only", action="store_true",
+                    help="build and hold the kernels against their plain "
+                         "versions (phases 1-3), then stop; prints no "
+                         "result line")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
@@ -470,7 +944,7 @@ def main() -> int:
 
     card = card_line()
     name = torch.cuda.get_device_name(0)
-    bw, f32_ops = peaks(name)
+    bw, f32_ops, tc_ops = peaks(name)
     log(f"card: {card}; torch {torch.__version__}, CUDA "
         f"{torch.version.cuda}, {torch.cuda.device_count()} device(s)")
 
@@ -485,25 +959,43 @@ def main() -> int:
     for s, text in _build.BUILD_LOG.items():
         regs = [int(w) for w in re.findall(r"Used (\d+) registers", text)]
         spills = sum(int(w) for w in re.findall(r"(\d+) bytes spill", text))
+        smem = [int(w) for w in re.findall(r"(\d+) bytes smem", text)]
         log(f"  ptxas {s}: {len(regs)} kernels, at most {max(regs)} "
-            f"registers a thread, {spills} bytes of spills")
+            f"registers a thread, {spills} bytes of spills, static smem "
+            f"at most {max(smem, default=0)} bytes")
 
     dev = torch.device("cuda")
+    t_phase = time.perf_counter()
     view = resnet18_view()
-    stats = check_stats(view, dev, bw, f32_ops)
-    apply_ = check_apply_main(view, dev, bw, f32_ops)
-    apply_["max_abs_err"] = max(apply_["max_abs_err"],
-                                check_apply_variants(dev))
+    res = {"fused_stats": check_stats(view, dev, bw, f32_ops),
+           "fused_apply": check_apply_main(view, dev, bw, f32_ops)}
+    res["fused_apply"]["max_abs_err"] = max(res["fused_apply"]["max_abs_err"],
+                                            check_apply_variants(dev))
+    res["qdq_cast"] = check_qdq(dev, bw, f32_ops)
+    res["flash_attention"] = check_flash(dev, bw, tc_ops)
+    res["flash_decode"] = check_decode(dev, bw, tc_ops)
+    log(f"kernel checks in {time.perf_counter() - t_phase:.1f} s")
+    if args.kernels_only:
+        return 0
+
+    t_phase = time.perf_counter()
     check_step_against_cpu()
+    check_lm_against_cpu()
+    log(f"card-vs-CPU checks in {time.perf_counter() - t_phase:.1f} s")
+    t_phase = time.perf_counter()
     launches = main_path(args.steps, args.batch0)
+    sess, serve_launches = serve_main_path()
+    for k in ("qdq_cast", "flash_attention", "flash_decode"):
+        launches[k] = serve_launches[k]
+    log(f"main paths in {time.perf_counter() - t_phase:.1f} s")
     profile_steps(args.batch0)
+    profile_decode(sess)
 
     rows = []
-    for kname, res in (("fused_stats", stats), ("fused_apply", apply_)):
-        src, replaces = KERNELS[kname]
+    for kname, (src, replaces) in KERNELS.items():
         rows.append({"name": kname, "route": "cuda", "source": src,
                      "replaces": replaces, "launches": launches[kname],
-                     **res, "library_ms": None})
+                     **res[kname]})
     print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -3,8 +3,9 @@
 Mirrors the reference package's subpackage paths: ``repro/x/y.py`` has its
 counterpart at ``repro_torch/x/y.py``. Imports ``torch`` and ``numpy`` only
 — never ``jax`` and nothing of ``repro``. Entry points (``Trainer``,
-``run_method``, ``VisionTask``) run on ``cuda`` unless the caller passes
-``device="cpu"``; asking for ``cuda`` without a card raises.
+``run_method``, ``VisionTask``, ``LMTask``, ``ServeSession``) run on
+``cuda`` unless the caller passes ``device="cpu"``; asking for ``cuda``
+without a card raises.
 """
 import torch
 

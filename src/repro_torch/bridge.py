@@ -36,6 +36,30 @@ def tree(t, device="cpu") -> Any:
     return tu.tree_map(lambda x: tensor(x, device), t)
 
 
+def lm_params(np_tree, device="cpu") -> Any:
+    """The reference's LM parameters (``split_params`` values as numpy:
+    ``{"embed": {"table"}, "stack": {"seg0": {"b0": {...}}}, "final_norm":
+    {"scale"}}``) -> the port's tree on ``device``. The trees have the same
+    keys and shapes, stacked per-segment layer axis included, so every leaf
+    crosses as it is."""
+    for key in ("embed", "stack", "final_norm"):
+        if key not in np_tree:
+            raise ValueError(f"not an LM parameter tree: no {key!r}")
+    return tree(np_tree, device)
+
+
+def to_numpy(t) -> Any:
+    """A tree of tensors -> the same tree of numpy arrays, bf16 as uint16
+    bits (view them back with ``ml_dtypes.bfloat16``); the way caches cross
+    from the port to the reference."""
+    def one(x):
+        x = x.detach().cpu()
+        if x.dtype == torch.bfloat16:
+            return x.view(torch.uint16).numpy()
+        return x.numpy()
+    return tu.tree_map(one, t)
+
+
 def control_state(fields: Mapping[str, Any], device="cpu") -> ControlState:
     """A reference ``ControlState`` given as ``{field: array}`` (e.g.
     ``jax.device_get(ctl)._asdict()``)."""

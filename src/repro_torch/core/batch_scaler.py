@@ -111,6 +111,24 @@ class MemoryModel:
                                                   ladder)
 
 
+@dataclasses.dataclass
+class ServeMemoryModel(MemoryModel):
+    """Inference-time memory model: weights at the ACTIVE serving precision
+    tier (``TIER_BYTES``) plus the per-sequence decode-cache bytes carried
+    in ``act_bytes_per_token_layer``; no optimizer, master or gradient
+    state. Its measured overlay is keyed (rung, tier), as the serving
+    engine's measured paths are."""
+
+    weight_tier: int = 1               # serving precision code: 0/1/2
+    ladder: str = "tpu"
+
+    def param_state_bytes(self) -> float:
+        return self.param_count * TIER_BYTES[self.ladder][self.weight_tier]
+
+    def measured_key(self, rung: int):
+        return (rung, self.weight_tier)
+
+
 class BatchScaler:
     """Discrete-rung realization of the paper's VRAM feedback controller."""
 
@@ -138,6 +156,18 @@ class BatchScaler:
                                   self.rungs[idx] * self.seq_len, codes,
                                   self.cfg.ladder)
 
+    def _cap_index(self, rung_cap: Optional[int]) -> Optional[int]:
+        """Index of the largest rung <= ``rung_cap`` (0 when the cap is
+        below every rung: the ceiling throttles, it never empties the
+        ladder)."""
+        if rung_cap is None:
+            return None
+        idx = 0
+        for i, r in enumerate(self.rungs):
+            if r <= rung_cap:
+                idx = i
+        return idx
+
     def mark_oom(self, rung: Optional[int] = None) -> int:
         """React to an out-of-memory error on ``rung``: poison it at 2x the
         cap and step ``delta_down`` rungs below it. Returns the new
@@ -153,10 +183,13 @@ class BatchScaler:
         return self.microbatch
 
     def observe(self, step: int, codes=None,
-                measured_bytes: Optional[float] = None) -> int:
+                measured_bytes: Optional[float] = None,
+                rung_cap: Optional[int] = None) -> int:
         """Apply the paper's hysteresis law; returns the (possibly new)
         rung. ``measured_bytes`` (the current rung's measured peak) is
-        recorded into the overlay and re-fits the calibration first."""
+        recorded into the overlay and re-fits the calibration first.
+        ``rung_cap`` (the serving latency ceiling) bounds the climb, and a
+        rung above it steps down."""
         if not self.cfg.enable_batch:
             return self.microbatch
         if measured_bytes is not None:
@@ -167,11 +200,17 @@ class BatchScaler:
         else:
             mem = self._mem(self.idx, codes)
         cap = self.cfg.mem_cap_bytes
+        cap_i = self._cap_index(rung_cap)
         if mem < self.cfg.rho_low * cap and self.idx + 1 < len(self.rungs):
             nxt = min(self.idx + self.cfg.delta_up, len(self.rungs) - 1)
-            if self._mem(nxt, codes) <= self.cfg.rho_high * cap:
+            if cap_i is not None:
+                nxt = min(nxt, cap_i)
+            if nxt > self.idx and \
+                    self._mem(nxt, codes) <= self.cfg.rho_high * cap:
                 self.idx = nxt
         elif mem > self.cfg.rho_high * cap and self.idx > 0:
             self.idx = max(self.idx - self.cfg.delta_down, 0)
+        if cap_i is not None and self.idx > cap_i:
+            self.idx = max(self.idx - self.cfg.delta_down, cap_i)
         self.history.append((step, self.microbatch, mem))
         return self.microbatch

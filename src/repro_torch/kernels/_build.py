@@ -3,8 +3,9 @@
 Each source compiles with ``nvcc`` for ``sm_90a`` into a shared library
 with a plain C interface, loaded through ``ctypes`` — no PyTorch headers,
 so a build takes seconds. Libraries go to ``<repo>/build/`` (listed in
-``.gitignore``), named by a hash of the source, so an edited source
-rebuilds and an unchanged one is reused. Nothing here runs at import.
+``.gitignore``), named by a hash of the source, its headers and flags, so
+an edited source rebuilds and an unchanged one is reused. Nothing here
+runs at import.
 """
 from __future__ import annotations
 
@@ -15,16 +16,18 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, Optional
+from typing import Dict, List, Optional
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC",
-              # no a*b+c contraction: the kernels hold their elementwise
-              # math bitwise against the plain PyTorch versions, which
-              # round after every operation
-              "--fmad=false", "-Xptxas", "-v"]
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+#: flags of one source beyond ``NVCC_FLAGS``. No a*b+c contraction for the
+#: kernels held bitwise against their plain PyTorch versions, which round
+#: after every operation; the attention kernels are held to a tolerance
+#: and keep nvcc's fused multiply-adds.
+SOURCE_FLAGS = {"fused_update": ["--fmad=false"],
+                "qdq_cast": ["--fmad=false"]}
 
 _LOCK = threading.Lock()
 _LIBS: Dict[str, ctypes.CDLL] = {}
@@ -43,10 +46,18 @@ def nvcc_path() -> str:
                        "machine with the CUDA toolkit")
 
 
+def flags(name: str) -> List[str]:
+    return NVCC_FLAGS + SOURCE_FLAGS.get(name, [])
+
+
 def lib_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    return BUILD_DIR / f"lib{name}_{tag}.so"
+    """The library's path, named by a hash of the source, the headers
+    beside it and the flags."""
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for hdr in sorted(CSRC.glob("*.cuh")):
+        h.update(hdr.read_bytes())
+    h.update(" ".join(flags(name)).encode())
+    return BUILD_DIR / f"lib{name}_{h.hexdigest()[:12]}.so"
 
 
 def start_build(name: str) -> Optional[subprocess.Popen]:
@@ -58,7 +69,8 @@ def start_build(name: str) -> Optional[subprocess.Popen]:
         return None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    cmd = [nvcc_path(), *flags(name), "-o", str(tmp),
+           str(CSRC / f"{name}.cu")]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
     proc.tmp_path = tmp                     # type: ignore[attr-defined]

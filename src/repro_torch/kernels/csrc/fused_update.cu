@@ -20,11 +20,10 @@
 // Elementwise math follows the reference operation by operation and is
 // built with --fmad=false, so masters, moments and compute copies equal
 // the plain PyTorch version bit for bit.
-#include <cuda_bf16.h>
-#include <cuda_fp16.h>
-#include <cuda_fp8.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "tier_round.cuh"
 
 namespace {
 
@@ -39,8 +38,6 @@ constexpr int RED_THREADS = 256;
 enum DType { F32 = 0, BF16 = 1, F16 = 2 };
 enum Kind { SGDM = 0, ADAMW = 1 };
 enum Ladder { GPU = 0, TPU = 1 };
-
-__device__ __forceinline__ float nan_f() { return __int_as_float(0x7fc00000); }
 
 // max that propagates NaN like jnp.max / jnp.maximum
 __device__ __forceinline__ float nanmax(float a, float b) {
@@ -86,24 +83,7 @@ __device__ __forceinline__ void store4(__half* p, const float* v) {
   *reinterpret_cast<uint2*>(p) = raw;
 }
 
-// ---- round trips through the narrow formats (round to nearest even) ----
-__device__ __forceinline__ float rt_bf16(float x) {
-  return __bfloat162float(__float2bfloat16_rn(x));
-}
-__device__ __forceinline__ float rt_f16(float x) {
-  return __half2float(__float2half_rn(x));
-}
-// f32 -> fp8 e4m3 -> f32. Past the top of the range the reference (JAX's
-// float8_e4m3fn cast) gives NaN: |y| > 464 (the midpoint between 448 and
-// the unused 480 code) and inf. __NV_NOSAT asks the hardware for NaN on
-// overflow; the explicit test pins the reference's rule whatever the
-// conversion does at the edge.
-__device__ __forceinline__ float rt_fp8(float y) {
-  __nv_fp8_storage_t s = __nv_cvt_float_to_fp8(y, __NV_NOSAT, __NV_E4M3);
-  float f = __half2float(__half(__nv_cvt_fp8_to_halfraw(s, __NV_E4M3)));
-  return (fabsf(y) <= 464.0f) ? f : nan_f();
-}
-
+// round trips (rt_bf16, rt_f16, rt_fp8) come from tier_round.cuh
 template <typename T> __device__ __forceinline__ float rt_container(float x);
 template <> __device__ __forceinline__ float rt_container<float>(float x) { return x; }
 template <> __device__ __forceinline__ float rt_container<__nv_bfloat16>(float x) { return rt_bf16(x); }

@@ -1,17 +1,33 @@
-"""Public wrappers for the fused-update kernels.
+"""Public wrappers for the hand-written kernels, with the reference's
+dispatch gates (``repro/kernels/ops.py``).
 
 A tensor on the CPU goes to the kernel's plain PyTorch version; a CUDA
 tensor goes to the hand-written CUDA kernel, or the call raises. Nothing
-falls back. Each wrapper counts its kernel launches in ``LAUNCHES`` (a
-plain integer per kernel, bumped only where the kernel is launched), so a
-run can show that the main path went through the kernels.
+falls back on a missing card. Each wrapper counts its kernel launches in
+``LAUNCHES`` (a plain integer per kernel, bumped only where the kernel is
+launched), so a run can show that the main path went through the kernels.
+
+The attention gates are the reference's, constants included (``BQ = BK =
+256``, ``DECODE_BLOCKS``): where a gate fails, the call runs the chunked or
+naive attention of ``nn.attention`` with the reference's one-time warning,
+as the reference does.
 """
 from __future__ import annotations
 
+import operator
+import warnings
+
+import torch
+
+from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import fused_update as _fu
+from repro_torch.kernels import qdq_cast as _qc
 
 #: kernel name -> launches since the last ``reset_launches()``
-LAUNCHES = {"fused_stats": 0, "fused_apply": 0}
+LAUNCHES = {"fused_stats": 0, "fused_apply": 0, "qdq_cast": 0,
+            "flash_attention": 0, "flash_decode": 0}
+#: fallback reasons already warned about (one warning per reason)
+WARNED_FALLBACKS: set = set()
 
 
 def reset_launches() -> None:
@@ -44,4 +60,152 @@ def fused_apply(g_slab, p_slab, m_slab, v_slab, scalars, row_layer,
         return _fu.fused_apply_ref(*args, **kw)
     out = _fu.fused_apply_cuda(*args, **kw)
     LAUNCHES["fused_apply"] += 1
+    return out
+
+
+def qdq_cast(x, code, ladder: str = "tpu", amax=None):
+    """Round ``x`` (any shape, f32 or bf16) to the tier grid ``code``
+    picks; ``amax`` replaces the tensor's own absmax (tpu ladder)."""
+    if x.device.type == "cpu":
+        return _qc.qdq_cast_ref(x, code, ladder, amax)
+    out = _qc.qdq_cast_cuda(x, code, ladder, amax)
+    LAUNCHES["qdq_cast"] += 1
+    return out
+
+
+# ------------------------------------------------------------ dispatch -----
+def _static_window(window):
+    """Integral window -> python int (0 = unwindowed); None for a tensor
+    window, which the kernel cannot specialize on."""
+    if window is None:
+        return 0
+    if isinstance(window, torch.Tensor):
+        return None
+    try:
+        return operator.index(window)
+    except TypeError:
+        return None
+
+
+def _is_std_arange(pos, batch: int, seqlen: int) -> bool:
+    """True when ``pos`` is None or a (B, S) tensor equal to the broadcast
+    arange(S) (read on the host)."""
+    if pos is None:
+        return True
+    if tuple(pos.shape) != (batch, seqlen):
+        return False
+    ar = torch.arange(seqlen, device=pos.device, dtype=pos.dtype)
+    return bool((pos == ar[None]).all())
+
+
+def kernel_shape_gate(q_shape, k_shape, v_shape) -> bool:
+    """Static part of the dispatch gate: self-attention with Sq == Sk
+    divisible by both block sizes and matching q/k head dims."""
+    Sq, Sk = q_shape[1], k_shape[1]
+    return (Sq == Sk and Sq % _fa.BQ == 0 and Sq % _fa.BK == 0
+            and q_shape[-1] == k_shape[-1])
+
+
+def kernel_fallback_reason(q_shape, k_shape, v_shape, q_pos, k_pos,
+                           window, segments=None) -> str:
+    """Why the kernel cannot take this call — "" when it can. The
+    reference's taxonomy, reason strings included."""
+    B, Sq = q_shape[0], q_shape[1]
+    Sk = k_shape[1]
+    if _static_window(window) is None:
+        return "traced window (kernel specializes on a static window)"
+    if Sq != Sk:
+        return f"cross-length attention Sq={Sq} != Sk={Sk}"
+    if Sq % _fa.BQ or Sq % _fa.BK:
+        return (f"seq len {Sq} not divisible by kernel blocks "
+                f"({_fa.BQ}/{_fa.BK})")
+    if q_shape[-1] != k_shape[-1]:
+        return f"q/k head dims differ ({q_shape[-1]} vs {k_shape[-1]})"
+    if segments is not None:
+        if q_pos is not None or k_pos is not None:
+            return ("packed segments with undeclared positions (wrap the "
+                    "constructor in nn.attention.segment_positions)")
+        return ""
+    if not (_is_std_arange(q_pos, B, Sq) and _is_std_arange(k_pos, B, Sk)):
+        return ("positions not provably the standard arange (packed/offset "
+                "batch without segment ids)")
+    return ""
+
+
+def _note_fallback(reason: str) -> None:
+    """Warn once per fallback reason: the fallback paths are correct but
+    pay full-window FLOPs."""
+    if reason and reason not in WARNED_FALLBACKS:
+        WARNED_FALLBACKS.add(reason)
+        warnings.warn(
+            f"flash_attention: kernel gate failed ({reason}); running the "
+            "chunked/naive fallback", stacklevel=3)
+
+
+def _flash_kernel(q, k, v, segments, causal, window, scale):
+    if q.device.type == "cpu":
+        return _fa.flash_attention_ref(q, k, v, segments, causal=causal,
+                                       window=window, scale=scale)
+    out = _fa.flash_attention_cuda(q.contiguous(), k.contiguous(),
+                                   v.contiguous(), segments, causal=causal,
+                                   window=window, scale=scale)
+    LAUNCHES["flash_attention"] += 1
+    return out
+
+
+def flash_attention(q, k, v, q_pos=None, k_pos=None, *, segments=None,
+                    causal=True, window=None, scale=None):
+    """Attention through the forward kernel where the reference's gate
+    holds (self-attention, Sq == Sk divisible by 256, matching q/k head
+    dims, a static window, positions None or the standard arange — or
+    segments with positions declared segment-standard); the chunked or
+    naive path of ``nn.attention`` elsewhere."""
+    B, Sq = q.shape[0], q.shape[1]
+    Sk = k.shape[1]
+    win = _static_window(window)
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    reason = kernel_fallback_reason(q.shape, k.shape, v.shape, q_pos, k_pos,
+                                    window, segments)
+    if not reason:
+        return _flash_kernel(q, k, v, segments, bool(causal), win,
+                             float(scale))
+    _note_fallback(reason)
+    from repro_torch.nn.attention import (_chunked_attention,
+                                          _naive_attention)
+    if win is not None:
+        window = win if win > 0 else None
+    dev = q.device
+    if q_pos is None:
+        q_pos = torch.arange(Sq, dtype=torch.int32,
+                             device=dev)[None].expand(B, Sq)
+    if k_pos is None:
+        k_pos = torch.arange(Sk, dtype=torch.int32,
+                             device=dev)[None].expand(B, Sk)
+    if Sq % _fa.BQ == 0 and Sk % _fa.BK == 0:
+        return _chunked_attention(q, k, v, q_pos, k_pos, causal, window,
+                                  scale, _fa.BQ, _fa.BK,
+                                  q_seg=segments, k_seg=segments)
+    return _naive_attention(q, k, v, q_pos, k_pos, causal, window, scale,
+                            q_seg=segments, k_seg=segments)
+
+
+# --------------------------------------------------------- ragged decode --
+def flash_decode_gate(q_shape, k_shape, window) -> bool:
+    """Gate of the ragged decode kernel: a single-token query, an
+    unwindowed full-length cache, matching q/k head dims, and a cache
+    length the reference's decode blocks tile."""
+    return (window is None and q_shape[1] == 1
+            and q_shape[-1] == k_shape[-1]
+            and _fa.decode_block(k_shape[1]) is not None)
+
+
+def flash_decode(q, k, v, lengths, *, scale=None):
+    """Row b of the (B, 1, H, D) query attends cache slots [0, lengths[b])
+    only. Callers gate with ``flash_decode_gate``."""
+    if q.device.type == "cpu":
+        return _fa.flash_decode_ref(q, k, v, lengths, scale=scale)
+    out = _fa.flash_decode_cuda(q.contiguous(), k.contiguous(),
+                                v.contiguous(), lengths, scale=scale)
+    LAUNCHES["flash_decode"] += 1
     return out

@@ -1,1 +1,1 @@
-"""Ported models (ResNet-18 so far)."""
+"""Ported models: ResNet-18 (vision) and decoder-only LMs (smollm-135m)."""

@@ -1,1 +1,2 @@
-"""Parameter initializers for the ported models."""
+"""Layers, attention, blocks and parameter initializers of the ported
+models."""

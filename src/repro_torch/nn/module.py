@@ -2,11 +2,13 @@
 wrapper, no logical-axis metadata: the port runs on one device). Random
 draws come from an explicit CPU ``torch.Generator`` and move to ``device``
 afterwards, so a seed gives the same weights on every device; on the
-``meta`` device only shapes are made."""
+``meta`` device only shapes are made. The reference's ``split_params``
+(values apart from logical sharding axes) has nothing to split here: a
+port tree is already the reference's split values tree."""
 from __future__ import annotations
 
 import math
-from typing import Optional, Sequence
+from typing import Any, Callable, Optional, Sequence
 
 import torch
 
@@ -17,7 +19,8 @@ def param(gen: torch.Generator, shape: Sequence[int], init: str = "normal",
           scale: Optional[float] = None, device="cpu",
           dtype=torch.float32) -> torch.Tensor:
     """init: "normal" (truncated normal on [-2, 2], fan-in scaled unless
-    ``scale`` is given), "zeros" or "ones"."""
+    ``scale`` is given), "embed" (normal times ``scale``, default 1),
+    "zeros" or "ones"."""
     shape = tuple(int(s) for s in shape)
     dev = torch.device(device)
     if dev.type == "meta":
@@ -33,6 +36,9 @@ def param(gen: torch.Generator, shape: Sequence[int], init: str = "normal",
         torch.nn.init.trunc_normal_(value, 0.0, 1.0, -2.0, 2.0,
                                     generator=gen)
         value = value * scale
+    elif init == "embed":
+        value = torch.randn(shape, dtype=dtype, generator=gen)
+        value = value * (1.0 if scale is None else scale)
     else:
         raise ValueError(f"unknown init {init!r}")
     return value.to(dev)
@@ -40,3 +46,11 @@ def param(gen: torch.Generator, shape: Sequence[int], init: str = "normal",
 
 def count_params(values) -> int:
     return sum(int(x.numel()) for x in tu.leaves(values))
+
+
+def stack_init(init_fn: Callable[[torch.Generator], Any],
+               gen: torch.Generator, n: int) -> Any:
+    """``init_fn(gen)`` for ``n`` layers, stacked leaf by leaf: every leaf
+    gains a leading layer axis, as the reference's vmapped ``stack_init``."""
+    layers = [init_fn(gen) for _ in range(n)]
+    return tu.tree_map(lambda *xs: torch.stack(xs), *layers)

@@ -1,0 +1,244 @@
+"""Serving engine: the (rung, precision-tier) decode / admit / repack paths
+and the per-tier weight sets, as ``repro/serve/engine.py``.
+
+PyTorch runs eagerly, so there is nothing to compile: ``warm()`` runs each
+(rung, tier) decode and admit path and each repack once on scratch caches,
+records the peak bytes the allocator held while it ran into ``measured``
+(the reference harvests each executable's ``memory_analysis()``), and
+counts the paths warmed in ``compile_count``. CUDA graphs of the paths
+come later.
+
+Precision ladder for decode weights (the serving side of §3.1):
+
+    tier 2  fp32   weights as trained
+    tier 1  bf16   cast
+    tier 0  fp8    rounded by the tier-cast kernel (``kernels.ops.qdq_cast``,
+                   one absmax per leaf on the tpu ladder; fp16 rounding on
+                   the gpu ladder), carried in a bf16 container
+
+Caches are updated in place where the reference donates them: ``decode``
+and ``admit`` write the caches they are given and return them.
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch import tree as tu
+from repro_torch.core.batch_scaler import measured_peak_bytes
+from repro_torch.train.task import TensorSpec
+
+
+def tier_params(params, tier: int, ladder: str = "tpu", amax_tree=None):
+    """Weight set for one serving precision tier (floating leaves only).
+    ``amax_tree`` (params-shaped scalars): known per-leaf absmax for the
+    tier-0 cast. A stacked leaf (layers, ...) gets ONE absmax over all its
+    layers, as the reference casts each leaf whole."""
+    from repro_torch.kernels import ops
+
+    def one(x, amax=None):
+        if not x.is_floating_point():
+            return x
+        if tier == 2:
+            return x.float()
+        if tier == 1:
+            return x.to(torch.bfloat16)
+        return ops.qdq_cast(x.float(), 0, ladder=ladder,
+                            amax=amax).to(torch.bfloat16)
+    if amax_tree is not None:
+        return tu.tree_map(one, params, amax_tree)
+    return tu.tree_map(one, params)
+
+
+def _map_named(fn, tree, *rest, name=""):
+    """``fn(name, leaf, *rest_leaves)`` over dict trees, ``name`` the leaf's
+    own key."""
+    if isinstance(tree, dict):
+        return {k: _map_named(fn, tree[k], *(r[k] for r in rest), name=k)
+                for k in sorted(tree)}
+    return fn(name, tree, *rest)
+
+
+def scatter_prefill(caches, pre, slot: int):
+    """Scatter ONE request's prefill caches (batch dim 1) into row ``slot``
+    of the batched decode caches, in place; returns ``caches``.
+
+    Leaves are stacked per segment, (layers, B, ...). A leaf whose per-row
+    shape matches is written directly; a sequence-indexed leaf (K, V,
+    positions) is ring-mapped: prefill wrote positions [0, P), the decode
+    cache holds L slots at position % L, and slots the prompt does not
+    reach are reset (position -1 = masked), so nothing of the row's
+    previous occupant leaks."""
+    def write(name, c, p):
+        if p.shape[2:] == c.shape[2:]:
+            c[:, slot] = p[:, 0].to(c.dtype)
+            return c
+        P, L = p.shape[2], c.shape[2]
+        keep = torch.arange(max(0, P - L), P, device=c.device)
+        row = c[:, slot]
+        row.fill_(-1 if name == "pos" else 0)
+        row[:, keep % L] = p[:, 0, keep].to(c.dtype)
+        return c
+    return _map_named(write, caches, pre)
+
+
+def repack_caches(caches, src, valid):
+    """Re-batch caches onto a new rung: row j of the result is row
+    ``src[j]`` of the input where ``valid[j]``, else the empty-slot value
+    (pos = -1). Returns new tensors."""
+    def one(name, c):
+        t = c.index_select(1, src.long())
+        fill = torch.tensor(-1 if name == "pos" else 0, dtype=t.dtype,
+                            device=t.device)
+        mask = valid.reshape((1, valid.shape[0]) + (1,) * (t.ndim - 2))
+        return torch.where(mask, t, fill)
+    return _map_named(one, caches)
+
+
+class ServeEngine:
+    """The serving paths and the precision ladder for one token task."""
+
+    def __init__(self, task, params, *, total_len: int,
+                 prompt_len: int, rungs: Sequence[int],
+                 tiers: Sequence[int] = (1,), ladder: str = "tpu",
+                 cache_dtype=torch.bfloat16, amax_tree=None,
+                 prefill_chunk: Optional[int] = None, device=None):
+        if list(rungs) != sorted(set(rungs)) or not rungs:
+            raise ValueError(f"rungs must be sorted and unique: {rungs}")
+        if prefill_chunk:
+            raise NotImplementedError(
+                "chunked prefill comes with the SLO-scheduling slice of the "
+                "port; serve with whole-prompt admission")
+        if not task.serves_tokens:
+            raise NotImplementedError(
+                "cache-free batched inference (vision infer) is not ported "
+                "yet")
+        self.task = task
+        self.device = torch.device(device) if device is not None \
+            else task.device
+        self.total_len = int(total_len)
+        self.prompt_len = int(prompt_len)
+        self.rungs = tuple(int(r) for r in rungs)
+        self.tiers = tuple(sorted(set(int(t) for t in tiers)))
+        self.ladder = ladder
+        self.cache_dtype = cache_dtype
+        self.params_by_tier = {t: tier_params(params, t, ladder,
+                                              amax_tree=amax_tree)
+                               for t in self.tiers}
+        self.input_spec = task.serve_input_spec(self.prompt_len)
+        #: peak allocated bytes while each path ran in ``warm()``, keyed as
+        #: the reference's executables: ("decode", rung, tier), ...
+        self.measured: Dict[Tuple, float] = {}
+        self.compile_count = 0        # paths warmed
+        #: how often each path ran, warm-ups included
+        self.runs = {"decode": 0, "admit": 0, "repack": 0}
+        self._warmed: set = set()
+
+    # ------------------------------------------------------------ shapes --
+    def _batch_spec(self, rung: int) -> Dict[str, TensorSpec]:
+        return {k: TensorSpec((rung,) + tuple(v.shape[1:]), v.dtype)
+                for k, v in self.input_spec.items()}
+
+    def init_caches(self, rung: int):
+        """Empty caches for ``rung`` slots on the engine's device."""
+        return self.task.init_cache(self._batch_spec(rung), self.total_len,
+                                    dtype=self.cache_dtype,
+                                    device=self.device)
+
+    def measured_bytes(self, rung: int, tier: int) -> Optional[float]:
+        """Measured footprint at (rung, tier): the max over the decode and
+        admit paths warmed there; None before ``warm()`` (and on the CPU)."""
+        keys = (("decode", rung, tier), ("admit", rung, tier))
+        vals = [self.measured[k] for k in keys if k in self.measured]
+        return max(vals) if vals else None
+
+    def _tensor(self, x, dtype):
+        return torch.as_tensor(np.asarray(x), dtype=dtype,
+                               device=self.device)
+
+    # ------------------------------------------------------------- paths --
+    @torch.no_grad()
+    def decode(self, rung, tier, caches, token, index, valid=None):
+        """One greedy decode step of every slot at its own position ->
+        (next tokens (rung,) int32, caches updated in place). Rows where
+        ``valid`` is False keep their cache rows bit-identical."""
+        from repro_torch.train.serve import make_decode_fn
+        index_np = np.asarray(index, np.int64).reshape(rung)
+        token_t = self._tensor(token, torch.int32).reshape(rung)
+        index_t = self._tensor(index_np, torch.int32)
+        inv = (np.flatnonzero(~np.asarray(valid, bool).reshape(rung))
+               if valid is not None else np.zeros((0,), np.int64))
+        saved = None
+        if inv.size:
+            # the step writes each row's slot index % L; keep those of the
+            # invalid rows and put them back after (the reference selects
+            # the old rows with jnp.where(valid, new, old))
+            rows = self._tensor(inv, torch.int64)
+            slots = self._tensor(index_np[inv] % self.total_len,
+                                 torch.int64)
+            saved = [(c, c[:, rows, slots].clone())
+                     for c in tu.leaves(caches)]
+        out, caches = make_decode_fn(self.task)(
+            self.params_by_tier[tier], caches, token_t, index_t)
+        if saved is not None:
+            for c, old in saved:
+                c[:, rows, slots] = old
+        self.runs["decode"] += 1
+        return out, caches
+
+    @torch.no_grad()
+    def admit(self, rung, tier, caches, slot, batch1):
+        """Prefill one request (batch dim 1) and scatter its caches into row
+        ``slot`` -> (its first token, caches updated in place)."""
+        del rung
+        batch1 = {k: self._tensor(v, self.input_spec[k].dtype)
+                  for k, v in batch1.items()}
+        logits, pre = self.task.prefill(self.params_by_tier[tier], batch1)
+        caches = scatter_prefill(caches, pre, int(slot))
+        self.runs["admit"] += 1
+        return torch.argmax(logits[0], dim=-1).to(torch.int32), caches
+
+    @torch.no_grad()
+    def repack(self, r_from, r_to, caches, src, valid):
+        del r_from, r_to
+        out = repack_caches(caches, self._tensor(src, torch.int64),
+                            self._tensor(valid, torch.bool))
+        self.runs["repack"] += 1
+        return out
+
+    # ------------------------------------------------------------- warm ---
+    def _warm_path(self, key, fn):
+        _, peak = measured_peak_bytes(fn, self.device)
+        if peak is not None:
+            self.measured[key] = peak
+        if key not in self._warmed:
+            self._warmed.add(key)
+            self.compile_count += 1
+
+    def warm(self) -> int:
+        """Run every path the session can dispatch once on scratch caches:
+        decode and admit per (rung, tier), repack per ordered rung pair;
+        ``measured`` then holds each path's peak allocated bytes (on the
+        card). Returns the number of paths warmed."""
+        for rung in self.rungs:
+            zeros = np.zeros((rung,), np.int32)
+            prompt = {k: np.zeros(v.shape, np.int64)
+                      for k, v in self.input_spec.items()}
+            for tier in self.tiers:
+                caches = self.init_caches(rung)
+                self._warm_path(("decode", rung, tier), lambda: self.decode(
+                    rung, tier, caches, zeros, zeros))
+                self._warm_path(("admit", rung, tier), lambda: self.admit(
+                    rung, tier, caches, 0, prompt))
+                del caches
+        for a in self.rungs:
+            caches = self.init_caches(a)
+            for b in self.rungs:
+                if a != b:
+                    src = np.arange(b, dtype=np.int64) % a
+                    self._warm_path(("repack", a, b), lambda: self.repack(
+                        a, b, caches, src, np.ones((b,), bool)))
+            del caches
+        return self.compile_count

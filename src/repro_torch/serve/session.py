@@ -1,0 +1,354 @@
+"""ServeSession: elastic continuous-batching serving over a token task, as
+``repro/serve/session.py`` with FIFO scheduling and whole-prompt
+admission.
+
+One session owns the admission queue, a slot array at the current batch
+rung, the batched decode caches and a ``ServeEngine``. Each ``step()``:
+
+  1. control cadence (every ``t_ctrl`` steps): the §3.3 BatchScaler over the
+     task's ``serve_memory_model`` updates the memory-capacity rung,
+     measured-first (``warm()`` records each (rung, tier) path's peak
+     bytes), and, with ``auto_tier``, re-picks the decode-weight tier: the
+     highest-precision configured tier whose footprint fits under
+     rho_high * cap;
+  2. rung resize: grow or shrink to the smallest configured rung covering
+     the load (never evicting in-flight requests), repacking cache rows;
+  3. admission: queued requests fill free slots in FIFO order, each with
+     one prefill scattered into its slot's cache rows;
+  4. one decode step for every active slot, each at its own position;
+     empty rows are left bit-identical. The step's wall time feeds the
+     (rung, tier) latency table.
+
+The SLO scheduler, chunked prefill, fault plans and OOM recovery raise
+``NotImplementedError`` until the slice that ports them.
+"""
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Any, Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.core.batch_scaler import BatchScaler
+from repro_torch.core.precision import TriAccelConfig
+from repro_torch.serve.batching import Request, RequestQueue, pick_rung
+from repro_torch.serve.engine import ServeEngine
+from repro_torch.serve.scheduler import LatencyTable
+from repro_torch.train.serve import as_task
+
+_LATER = "comes with the SLO-scheduling slice of the port"
+
+
+def _pct(xs, q) -> Optional[float]:
+    return float(np.percentile(np.asarray(xs, np.float64), q)) if xs else None
+
+
+@dataclasses.dataclass
+class ServeConfig:
+    prompt_len: int = 16              # fixed prompt length (whole-prompt)
+    total_len: int = 48               # cache horizon: prompt + generation
+    rungs: Tuple[int, ...] = (2, 4)   # batch rung ladder (ascending)
+    tiers: Tuple[int, ...] = (1,)     # decode-weight precision tiers warmed
+    ladder: str = "tpu"               # fp8 (tpu) vs fp16 (gpu) low tier
+    cache_dtype: Any = torch.bfloat16
+    max_new_tokens: int = 16          # per-request default
+    t_ctrl: int = 8                   # §3.4 control cadence, decode steps
+    mem_cap_bytes: float = 16e9
+    auto_tier: bool = True
+    seed: int = 0
+    prefill_chunk: Optional[int] = None   # chunked prefill: not yet ported
+    schedule: str = "fifo"            # "slo" not yet ported
+    # per-priority-class p99 decode-step budget (ms); the latency ceiling
+    # stops the rung climbing past the tightest budget of any class present
+    latency_slo_ms: Optional[Dict[int, float]] = None
+
+
+class ServeSession:
+    """Task-level serving session on ``device`` (``cuda`` unless the caller
+    passes ``device="cpu"``)."""
+
+    def __init__(self, task, cfg: Optional[ServeConfig] = None, params=None,
+                 tac: Optional[TriAccelConfig] = None, fault_plan=None,
+                 device="cuda"):
+        cfg = cfg if cfg is not None else ServeConfig()
+        if cfg.schedule == "slo":
+            raise NotImplementedError(f"schedule='slo' {_LATER}")
+        if cfg.schedule != "fifo":
+            raise ValueError(f"unknown schedule {cfg.schedule!r} "
+                             f"(expected 'fifo' or 'slo')")
+        if cfg.prefill_chunk:
+            raise NotImplementedError(f"prefill_chunk {_LATER}")
+        if fault_plan is not None:
+            raise NotImplementedError(
+                "fault plans and OOM recovery come with the resilience "
+                "slice of the port")
+        self.device = resolve_device(device)
+        self.task = as_task(task, self.device)
+        self.cfg = cfg
+        if params is None:
+            gen = torch.Generator().manual_seed(cfg.seed)
+            params, _ = self.task.init(gen, device=self.device)
+        self.tac = tac if tac is not None else TriAccelConfig(
+            ladder=cfg.ladder, mem_cap_bytes=cfg.mem_cap_bytes,
+            t_ctrl=cfg.t_ctrl)
+        tiers = tuple(sorted(set(cfg.tiers)))
+        self.tier = 1 if 1 in tiers else tiers[-1]
+        self._tier_locked = not cfg.auto_tier
+        self.mm = self.task.serve_memory_model(
+            params, cfg.total_len, ladder=cfg.ladder, weight_tier=self.tier)
+        self.scaler = BatchScaler(list(cfg.rungs),
+                                  self.task.tokens_per_sample(cfg.total_len),
+                                  self.mm, self.tac)
+        self.engine = ServeEngine(
+            self.task, params, total_len=cfg.total_len,
+            prompt_len=cfg.prompt_len, rungs=cfg.rungs, tiers=tiers,
+            ladder=cfg.ladder, cache_dtype=cfg.cache_dtype,
+            device=self.device)
+        del params
+        self.rung = cfg.rungs[0]
+        self.slots: List[Optional[Request]] = [None] * self.rung
+        self.caches = self.engine.init_caches(self.rung)
+        self.queue = RequestQueue()
+        self.requests: Dict[int, Request] = {}
+        self.steps = 0
+        self.decoded_tokens = 0
+        self.lat = LatencyTable()
+        self.lat_rung: Optional[int] = None
+        self.rung_history: List[Tuple[int, int]] = [(0, self.rung)]
+        self.tier_history: List[Tuple[int, int]] = [(0, self.tier)]
+
+    # ------------------------------------------------------------- public --
+    @property
+    def compile_count(self) -> int:
+        return self.engine.compile_count
+
+    def warm(self) -> int:
+        """Run every (rung, tier) path once and copy each one's measured
+        bytes into the rung controller; returns the paths warmed."""
+        n = self.engine.warm()
+        self._refresh_overlay()
+        return n
+
+    def _refresh_overlay(self) -> None:
+        for rung in self.engine.rungs:
+            for tier in self.engine.tiers:
+                if (rung, tier) in self.mm.poisoned:
+                    continue
+                mb = self.engine.measured_bytes(rung, tier)
+                if mb is not None:
+                    self.mm.measured[(rung, tier)] = mb
+
+    def submit(self, inputs: Dict[str, np.ndarray],
+               max_new_tokens: Optional[int] = None, priority: int = 1,
+               deadline_ms: Optional[float] = None) -> int:
+        """Queue one request (unbatched inputs); returns its id."""
+        n = max_new_tokens if max_new_tokens is not None \
+            else self.cfg.max_new_tokens
+        if n < 1:
+            raise ValueError(f"max_new_tokens must be >= 1, got {n}")
+        tokens = inputs.get("tokens")
+        if tokens is None:
+            raise ValueError("token-serving request needs 'tokens'")
+        p = int(np.asarray(tokens).shape[0])
+        if p != self.cfg.prompt_len:
+            raise ValueError(
+                f"prompt length {p} != configured prompt_len "
+                f"{self.cfg.prompt_len} (variable-length prompts need "
+                f"prefill_chunk set)")
+        if p + n > self.cfg.total_len:
+            raise ValueError(f"prompt {p} + gen {n} exceeds total_len "
+                             f"{self.cfg.total_len}")
+        req = self.queue.submit(inputs, max_new_tokens=n, priority=priority,
+                                deadline_ms=deadline_ms,
+                                submitted_step=self.steps)
+        self.requests[req.rid] = req
+        return req.rid
+
+    def set_tier(self, tier: int, lock: bool = True):
+        """Pin the decode-weight precision tier."""
+        if tier not in self.engine.tiers:
+            raise ValueError(f"tier {tier} not warmed "
+                             f"(configured: {self.engine.tiers})")
+        if tier != self.tier:
+            self.tier_history.append((self.steps, tier))
+        self.tier = tier
+        self._tier_locked = lock
+
+    def step(self):
+        if self.steps % self.tac.t_ctrl == 0:
+            self._control()
+        self._resize()
+        self._admit()
+        self._decode()
+        self.steps += 1
+
+    def run(self, max_steps: int = 10_000) -> Dict[str, Any]:
+        """Step until the queue drains and every request completes."""
+        t0 = time.time()
+        while (len(self.queue) or self._active()) and self.steps < max_steps:
+            self.step()
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        dt = max(time.time() - t0, 1e-9)
+        return {"steps": self.steps, "decoded_tokens": self.decoded_tokens,
+                "wall_s": dt, "warm_s": 0.0, "serve_s": dt,
+                "tok_s": self.decoded_tokens / dt,
+                "rung_history": list(self.rung_history),
+                "tier_history": list(self.tier_history),
+                "compile_count": self.compile_count,
+                **self.latency_report()}
+
+    def latency_report(self) -> Dict[str, Any]:
+        """Queue wait (steps) and time-to-first-token (wall seconds)
+        percentiles over everything admitted so far."""
+        reqs = list(self.requests.values())
+        queue_steps = [r.admitted_step - r.submitted_step for r in reqs
+                       if r.admitted_step >= 0 and r.submitted_step >= 0]
+        ttft = [r.first_token_time - r.submit_time for r in reqs
+                if r.first_token_step >= 0]
+        return {
+            "queue_steps_p50": _pct(queue_steps, 50),
+            "queue_steps_p99": _pct(queue_steps, 99),
+            "ttft_s_p50": _pct(ttft, 50),
+            "ttft_s_p99": _pct(ttft, 99),
+            "rejected": sum(r.status == "rejected" for r in reqs),
+            "failed": sum(r.status == "failed" for r in reqs),
+        }
+
+    def results(self) -> Dict[int, Request]:
+        return dict(self.requests)
+
+    # ----------------------------------------------------------- internals --
+    def _active(self) -> List[Request]:
+        return [r for r in self.slots if r is not None]
+
+    def _step_budget_s(self) -> Optional[float]:
+        """Tightest per-step p99 budget among the priority classes with
+        work in the session."""
+        slo = self.cfg.latency_slo_ms
+        if not slo:
+            return None
+        classes = {r.priority for r in self._active()}
+        classes.update(self.queue.depth_by_class())
+        budgets = [slo[c] for c in classes if c in slo]
+        return min(budgets) / 1e3 if budgets else None
+
+    def _control(self):
+        """§3.3/§3.4 serve-side control: the memory-capacity rung, the
+        latency ceiling and the decode-weight tier, measured-first."""
+        self.mm.weight_tier = self.tier
+        self._refresh_overlay()
+        self.lat_rung = self.lat.latency_rung(
+            self.engine.rungs, self.tier, self._step_budget_s())
+        self.scaler.observe(self.steps, measured_bytes=self.mm.measured.get(
+            (self.scaler.microbatch, self.tier)), rung_cap=self.lat_rung)
+        if self._tier_locked or len(self.engine.tiers) < 2:
+            return
+        cap = self.tac.rho_high * self.tac.mem_cap_bytes
+        tokens = self.rung * self.task.tokens_per_sample(self.cfg.total_len)
+        usable = [t for t in sorted(self.engine.tiers, reverse=True)
+                  if (self.rung, t) not in self.mm.poisoned]
+        chosen = None
+        for tier in usable:
+            self.mm.weight_tier = tier
+            if self.mm.predict(self.rung, tokens) <= cap:
+                chosen = tier
+                break
+        if chosen is None:
+            chosen = usable[-1] if usable else self.tier
+        self.mm.weight_tier = chosen
+        if chosen != self.tier:
+            self.tier = chosen
+            self.tier_history.append((self.steps, chosen))
+
+    def _resize(self):
+        active = self._active()
+        target = pick_rung(self.engine.rungs, len(active), len(self.queue),
+                           self.scaler.microbatch, latency_rung=self.lat_rung)
+        if target == self.rung:
+            return
+        src = np.zeros((target,), np.int64)
+        valid = np.zeros((target,), bool)
+        for j, req in enumerate(active):
+            src[j], valid[j] = req.slot, True
+        self.caches = self.engine.repack(self.rung, target, self.caches,
+                                         src, valid)
+        self.slots = list(active) + [None] * (target - len(active))
+        for j, req in enumerate(active):
+            req.slot = j
+        self.rung = target
+        self.rung_history.append((self.steps, target))
+
+    def _finish(self, req: Request):
+        req.status = "done"
+        req.finished_step = self.steps
+        req.finish_time = time.time()
+        if req.slot is not None:
+            self.slots[req.slot] = None
+            req.slot = None
+
+    def _handle_oom(self, where: str, err: Exception):
+        """The reference steps the rung down, demotes the tier or sheds a
+        request on an out-of-memory error; the port does not recover yet."""
+        raise NotImplementedError(
+            f"out of memory in {where} at rung {self.rung}, tier "
+            f"{self.tier}: OOM recovery comes with the resilience slice of "
+            "the port") from err
+
+    def _first_token(self, req: Request, tok0: int):
+        req.tokens = [int(tok0)]
+        req.first_token_step = self.steps
+        req.first_token_time = time.time()
+        self.decoded_tokens += 1
+        if len(req.tokens) >= req.max_new_tokens:
+            self._finish(req)
+
+    def _admit(self):
+        for s in range(self.rung):
+            if self.slots[s] is not None or not len(self.queue):
+                continue
+            req = self.queue.pop()
+            req.slot = s
+            req.admitted_step = self.steps
+            self.slots[s] = req
+            batch1 = {k: v[None] for k, v in req.inputs.items()}
+            try:
+                tok0, self.caches = self.engine.admit(self.rung, self.tier,
+                                                      self.caches, s, batch1)
+            except torch.cuda.OutOfMemoryError as e:
+                self._handle_oom("admit", e)
+            req.status = "active"
+            req.index = self.cfg.prompt_len
+            self._first_token(req, int(tok0))     # reads the token: syncs
+
+    def _decode(self):
+        if not any(r is not None and r.status == "active"
+                   for r in self.slots):
+            return
+        tokens = np.zeros((self.rung,), np.int32)
+        index = np.zeros((self.rung,), np.int32)
+        valid = np.zeros((self.rung,), bool)
+        for s, req in enumerate(self.slots):
+            if req is not None and req.status == "active":
+                tokens[s], index[s], valid[s] = req.tokens[-1], req.index, True
+        t0 = time.time()
+        try:
+            out, self.caches = self.engine.decode(self.rung, self.tier,
+                                                  self.caches, tokens, index,
+                                                  valid)
+        except torch.cuda.OutOfMemoryError as e:
+            self._handle_oom("decode", e)
+        out = out.cpu().numpy()      # waits for the step: its real wall time
+        self.lat.record(self.rung, self.tier, time.time() - t0)
+        for s, req in enumerate(list(self.slots)):
+            if req is None or req.status != "active":
+                continue
+            req.index += 1
+            if len(req.tokens) < req.max_new_tokens:
+                req.tokens.append(int(out[s]))
+                self.decoded_tokens += 1
+            if len(req.tokens) >= req.max_new_tokens:
+                self._finish(req)

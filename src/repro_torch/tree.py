@@ -14,35 +14,40 @@ from typing import Any, Callable, List, Tuple
 _LEAF = None
 
 
+def _flatten_into(t, leaves: List[Any]):
+    if isinstance(t, dict):
+        keys = sorted(t.keys())
+        return ("dict", tuple(keys),
+                tuple(_flatten_into(t[k], leaves) for k in keys))
+    if isinstance(t, (list, tuple)):
+        return (type(t).__name__, len(t),
+                tuple(_flatten_into(x, leaves) for x in t))
+    leaves.append(t)
+    return _LEAF
+
+
 def flatten(tree) -> Tuple[List[Any], Any]:
     """-> (leaves, treedef)."""
     leaves: List[Any] = []
+    return leaves, _flatten_into(tree, leaves)
 
-    def rec(t):
-        if isinstance(t, dict):
-            keys = sorted(t.keys())
-            return ("dict", tuple(keys), tuple(rec(t[k]) for k in keys))
-        if isinstance(t, (list, tuple)):
-            return (type(t).__name__, len(t), tuple(rec(x) for x in t))
-        leaves.append(t)
-        return _LEAF
 
-    return leaves, rec(tree)
+# The walks are module-level functions, not closures that call themselves:
+# a self-referencing closure is a reference cycle that would keep every
+# leaf it saw alive until the cyclic garbage collector runs.
+def _build(d, it):
+    if d is _LEAF:
+        return next(it)
+    kind, meta, children = d
+    if kind == "dict":
+        return {k: _build(c, it) for k, c in zip(meta, children)}
+    seq = [_build(c, it) for c in children]
+    return seq if kind == "list" else tuple(seq)
 
 
 def unflatten(treedef, leaves) -> Any:
     it = iter(leaves)
-
-    def rec(d):
-        if d is _LEAF:
-            return next(it)
-        kind, meta, children = d
-        if kind == "dict":
-            return {k: rec(c) for k, c in zip(meta, children)}
-        seq = [rec(c) for c in children]
-        return seq if kind == "list" else tuple(seq)
-
-    out = rec(treedef)
+    out = _build(treedef, it)
     if next(it, _LEAF) is not _LEAF:
         raise ValueError("more leaves than the treedef holds")
     return out
