@@ -13,17 +13,29 @@ Phases (any failure raises and the script exits non-zero):
      (``bound_ms``) and time one PyTorch call computing the same function
      where there is one (``library_ms``):
        - fused_stats / fused_apply at the ResNet-18 slab shape (22,016 x
-         512, 11 layers) and over every fused_apply variant, bitwise;
+         512, 11 layers, f32), at the LM training slab (smollm-135m's
+         134.5 M parameters under ``lm_grouping``, 32 layers, the bf16
+         gradient and copy of that path) and over every fused_apply
+         variant, bitwise;
        - qdq_cast over every variant and over all of smollm-135m's leaves
          (the main path's tier-0 cast), bitwise;
        - flash_attention over every variant at the test shapes and at the
          main path's prefill (S 1024, 9/3 heads, head_dim 64, bf16);
        - flash_decode over ragged lengths (0, 1, L, between) and at the
          main path's decode (4 rows against a 2048-slot cache);
+       - the three flash backward kernels (delta, dQ, dK/dV) over every
+         variant, and with the forward kernel (LSE output on) at the LM
+         training shapes (B 2, 4 and 8, S 1024, 9/3 heads, head_dim 64,
+         bf16, causal), timed at B 8 against the forward and the backward
+         of ``scaled_dot_product_attention``; the differentiable
+         ``ops.flash_attention`` against autograd through the plain
+         forward;
   4. correctness of whole steps: one slab-resident train step of ResNet-18
-     at batch 4, and one prefill plus 4 teacher-forced decode steps of
-     smollm-135m at full width and 2 layers, each on the card against the
-     same on the CPU (plain versions), from the same weights;
+     at batch 4, one prefill plus 4 teacher-forced decode steps of
+     smollm-135m at full width and 2 layers, and one slab-resident LM
+     train step of smollm-135m at full width and 2 layers (S 1024, B 2),
+     each on the card against the same on the CPU (plain versions), from
+     the same weights;
   5. the main paths, with the kernels' launch counts read around each:
        - ``run_method("triaccel", "resnet18", steps=50, batch0=32)``;
        - serving: ``ServeSession`` over smollm-135m at full width (30
@@ -32,8 +44,20 @@ Phases (any failure raises and the script exits non-zero):
          equal 30 x prefills (flash_attention), 30 x decode steps
          (flash_decode) and the tier-0 leaves (qdq_cast), and no attention
          gate may fall back;
+       - LM training: ``repro_torch.launch.train.main`` for smollm-135m at
+         30 layers, S 1024, rungs 2/4/8, 20 steps (``LM_TRAIN_ARGS``,
+         t_ctrl / t_curv lowered to 5 / 10 so both controls fire); the
+         counts must equal 2 x 30 forward launches (forward and remat
+         recompute) and 30 of each backward kernel a step;
   6. where the time goes: ``torch.profiler`` over a few ResNet-18 train
-     steps and over a few decode steps at rung 4.
+     steps, over a few decode steps at rung 4 and over one LM train step
+     at rung 8; the LM step time per rung.
+
+A kernel that runs on two main paths at different shapes (fused_stats and
+fused_apply: ResNet-18 and LM training; flash_attention: serving and LM
+training) has a row for each in the ``kernels`` line, the LM training
+one named ``<kernel>@lm_train``: its launches on that path beside its
+time at that path's shape.
 
 The last three lines are the ``kernels`` JSON line, the card's name and
 power limit, and ``{"ok": true, "device": {...}}``. Without a card (or
@@ -43,6 +67,7 @@ result.
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import math
 import re
@@ -67,9 +92,22 @@ KERNELS = {
                  "src/repro/kernels/qdq_cast.py:98"),
     "flash_attention": (f"{CSRC}/flash_attention.cu",
                         "src/repro/kernels/flash_attention.py:222"),
+    "flash_attention_bwd_delta": (
+        f"{CSRC}/flash_attention_bwd.cu",
+        "src/repro/kernels/flash_attention.py:379"),
+    "flash_attention_bwd_dq": (f"{CSRC}/flash_attention_bwd.cu",
+                               "src/repro/kernels/flash_attention.py:405"),
+    "flash_attention_bwd_dkv": (f"{CSRC}/flash_attention_bwd.cu",
+                                "src/repro/kernels/flash_attention.py:441"),
     "flash_decode": (f"{CSRC}/flash_attention.cu",
                      "src/repro/kernels/flash_attention.py:546"),
 }
+# the LM training main path (phase 5c): launcher arguments and the rung
+# controller / fisher refresh periods, lowered from the launcher's 20 / 100
+# so both fire within the run
+LM_TRAIN_ARGS = ["--arch", "smollm-135m", "--seq", "1024", "--rungs",
+                 "2,4,8", "--steps", "20", "--ladder", "gpu"]
+LM_T_CTRL, LM_T_CURV = 5, 10
 # published peaks of the H100 SXM (NVIDIA's data sheet): device memory
 # bytes/s, f32 operations/s outside the tensor cores, and bf16 tensor-core
 # operations/s (dense)
@@ -152,15 +190,42 @@ def resnet18_view():
     return slab_view(params, flat_grouping(params))
 
 
-def check_stats(view, dev, bw, f32_ops):
+def lm_train_view():
+    """The slab view of smollm-135m's parameters under ``lm_grouping``
+    (30 layers + embed + head), as the LM training path builds it."""
+    from repro_torch.configs import smollm_135m
+    from repro_torch.kernels.layout import slab_view
+    from repro_torch.train.task import LMTask
+    task = LMTask(smollm_135m.config(), device="cpu")
+    params, _ = task.init(torch.Generator(), device="meta")
+    return slab_view(params, task.grouping(params))
+
+
+def lm_train_variant():
+    """The fused update's variant on the LM training path: the launcher's
+    default optimizer (the trainer's sgdm defaults), the gradient slab and
+    compute copy in the LM's compute dtype; ``lm_train_main_path`` asserts
+    that its trainer ran exactly this."""
+    from repro_torch.configs import smollm_135m
+    from repro_torch.optim.optimizers import sgdm
+    from repro_torch.train.trainer import TrainerConfig
+    tc = TrainerConfig()
+    cd = smollm_135m.config().compute_dtype
+    return dict(spec=sgdm(tc.momentum, tc.weight_decay).spec, g_dtype=cd,
+                cp_dtype=cd, ladder=LM_TRAIN_ARGS[
+                    LM_TRAIN_ARGS.index("--ladder") + 1], sr=False)
+
+
+def check_stats(view, dev, bw, f32_ops, g_dtype=torch.float32,
+                what="ResNet-18"):
     from repro_torch.kernels import fused_update as fu
     from repro_torch.kernels import ops
     rows, L = view.rows, view.num_layers
     gen = torch.Generator(device=dev).manual_seed(1)
-    # three gradient slabs, 135 MB in all, so each timed launch finds its
-    # input out of the 50 MB L2 cache, as after a real backward
-    gs = [torch.randn((rows, 512), generator=gen, device=dev) * 1e-3
-          for _ in range(3)]
+    # three gradient slabs (135 MB in all for ResNet-18), so each timed
+    # launch finds its input out of the 50 MB L2 cache, as after a backward
+    gs = [(torch.randn((rows, 512), generator=gen, device=dev) * 1e-3
+           ).to(g_dtype) for _ in range(3)]
     g = gs[0]
     g[5, 7], g[300, 0], g[301, 511] = float("inf"), -float("inf"), float("nan")
     g[9000, 100:110] = float("nan")
@@ -192,7 +257,8 @@ def check_stats(view, dev, bw, f32_ops):
         check(bool((off <= 2.0 ** -20 * mass).all()),
               f"fused_stats sum ({who}): off the f64 sum by "
               f"{off.tolist()} against sum|g| {mass.tolist()}")
-    log(f"fused_stats sum: kernel and plain off the f64 sum by at most "
+    log(f"fused_stats ({what}) sum: kernel and plain off the f64 sum by "
+        f"at most "
         f"{float((got[0].double() - truth).abs().max()):.3g} / "
         f"{float((want[0].double() - truth).abs().max()):.3g} (sum|g| per "
         f"layer {float(mass.min()):.3g}..{float(mass.max()):.3g}); kernel vs "
@@ -207,16 +273,18 @@ def check_stats(view, dev, bw, f32_ops):
 
     def raw():          # the kernel alone: no checks, no allocation
         k[0] = (k[0] + 1) % 3
-        lib.tri_fused_stats(gs[k[0]].data_ptr(), 0, rl.data_ptr(), rows, L,
-                            part.data_ptr(), out.data_ptr(),
+        lib.tri_fused_stats(gs[k[0]].data_ptr(), fu._DTYPE_CODE[g_dtype],
+                            rl.data_ptr(), rows, L, part.data_ptr(),
+                            out.data_ptr(),
                             torch.cuda.current_stream().cuda_stream)
 
     ms = time_ms(raw, iters=30)
     plain_ms = time_ms(lambda: fu.fused_stats_ref(g, rl, L), iters=5)
-    nbytes = rows * 512 * 4 + rows * 4 + 4 * L * 4
+    nbytes = rows * 512 * g.element_size() + rows * 4 + 4 * L * 4
     nops = rows * 512 * 8      # isfinite, select, add, mul+add, add, abs+max
     b_ms, by = bound(nbytes, nops, bw, f32_ops)
-    log(f"fused_stats {rows}x512 f32 L={L}: kernel {ms:.4f} ms, plain "
+    log(f"fused_stats ({what}) {rows}x512 {g_dtype} L={L}: kernel {ms:.4f} "
+        f"ms, plain "
         f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms ({by}), max|err| {err:.3g}")
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": b_ms, "bound_by": by, "library_ms": None}
@@ -290,23 +358,31 @@ def check_apply_variants(dev):
     return err
 
 
-def check_apply_main(view, dev, bw, f32_ops):
-    """fused_apply at the main path's shape and variant (sgdm, gpu ladder,
-    f32 copy) — bitwise against the plain version, then timed."""
+def check_apply_main(view, dev, bw, f32_ops, spec=None,
+                     g_dtype=torch.float32, cp_dtype=torch.float32,
+                     ladder="gpu", sr=False, what="ResNet-18"):
+    """fused_apply at a main path's shape and variant (ResNet-18's: sgdm
+    with weight decay, gpu ladder, f32 gradient and copy) — bitwise
+    against the plain version, then timed."""
     from repro_torch.kernels import fused_update as fu
     from repro_torch.kernels import ops
     rows, L = view.rows, view.num_layers
     g, p, m, _, _, lr, _, qs = _apply_inputs(rows, L, dev, False, 3)
+    g = g.to(g_dtype)
     rl = view.row_blocks(dev)
     gen = torch.Generator(device=dev).manual_seed(4)
     code = torch.randint(0, 3, rl.shape, generator=gen, device=dev,
                          dtype=torch.int32)
-    spec = fu.OptSpec("sgdm", momentum=0.9, weight_decay=5e-4)
-    kw = dict(spec=spec, ladder="gpu", cp_dtype=torch.float32, num_layers=L)
+    if spec is None:
+        spec = fu.OptSpec("sgdm", momentum=0.9, weight_decay=5e-4)
+    check(spec.kind == "sgdm", "check_apply_main times the sgdm form")
+    kw = dict(spec=spec, ladder=ladder, cp_dtype=cp_dtype, num_layers=L,
+              sr=sr)
     scal = torch.tensor([0.5, 1.0, 1.0, 1.0, 7.0], device=dev)
     err = _apply_pair(ops, fu, (g, p, m, None, scal, rl, lr, code, qs), kw)
     lib = fu._lib()
-    outs = [torch.empty_like(p) for _ in range(3)]
+    outs = [torch.empty_like(p), torch.empty_like(p),
+            torch.empty(p.shape, dtype=cp_dtype, device=dev)]
     part = torch.empty((rows // lib.tri_rows_per_block()) * L, device=dev)
     pmax = torch.empty((L,), device=dev)
     ptrs = [t.data_ptr() for t in (g, p, m)] + [None] + \
@@ -315,19 +391,23 @@ def check_apply_main(view, dev, bw, f32_ops):
                                             part.data_ptr(), pmax.data_ptr()]
 
     def raw():          # the kernel alone: no checks, no allocation
-        lib.tri_fused_apply(0, 0, 0, 0, 0, 0, spec.momentum, spec.b1,
-                            1.0 - spec.b1, spec.b2, 1.0 - spec.b2, spec.eps,
-                            spec.weight_decay, *ptrs, rows, L,
+        lib.tri_fused_apply(0, int(ladder == "tpu"),
+                            fu._DTYPE_CODE[g_dtype], fu._DTYPE_CODE[cp_dtype],
+                            int(sr), int(spec.nesterov), spec.momentum,
+                            spec.b1, 1.0 - spec.b1, spec.b2, 1.0 - spec.b2,
+                            spec.eps, spec.weight_decay, *ptrs, rows, L,
                             torch.cuda.current_stream().cuda_stream)
 
     ms = time_ms(raw, iters=20)
     plain_ms = time_ms(lambda: fu.fused_apply_ref(
         g, p, m, None, scal, rl, lr, code, qs, **kw), iters=3)
-    slab = rows * 512 * 4
-    nbytes = 6 * slab + 4 * rows * 4 + 5 * 4 + L * 4   # g,p,m in; p,m,cp out
-    nops = rows * 512 * 16      # scale, wd, momentum, lr step, casts, absmax
+    elems = rows * 512          # g, p, m in; p, m, copy out
+    nbytes = elems * (g.element_size() + 4 * 4 + outs[2].element_size()) \
+        + 4 * rows * 4 + 5 * 4 + L * 4
+    nops = elems * 16           # scale, wd, momentum, lr step, casts, absmax
     b_ms, by = bound(nbytes, nops, bw, f32_ops)
-    log(f"fused_apply {rows}x512 sgdm/gpu/f32: kernel {ms:.4f} ms, plain "
+    log(f"fused_apply ({what}) {rows}x512 sgdm/{ladder}, g {g_dtype}, copy "
+        f"{cp_dtype}: kernel {ms:.4f} ms, plain "
         f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms ({by}), max|err| {err:.3g}")
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": b_ms, "bound_by": by, "library_ms": None}
@@ -521,6 +601,13 @@ def close(got, want, what) -> float:
     return float(d.max())
 
 
+def close_lse(got, want, what) -> None:
+    """The forward kernel's LSE against the plain forward's: within 1e-5
+    of 1 + the largest |lse| (f32 sums of exp in another order)."""
+    check(bool((got - want).abs().max() <= 1e-5 * (1 + want.abs().max())),
+          what + " lse")
+
+
 def _lm_leaves():
     """The floating leaves of smollm-135m's parameters, as shapes."""
     from repro_torch import tree as tu
@@ -653,8 +740,7 @@ def check_flash(dev, bw, tc_rate):
                                                     with_lse=True, **kw)
                 what = f"flash {S} {H}/{K} {D} {dtype} {variant}"
                 err = max(err, close(o, o_r, what))
-                check(bool((lse - lse_r).abs().max()
-                           <= 1e-5 * (1 + lse_r.abs().max())), what + " lse")
+                close_lse(lse, lse_r, what)
                 n += 1
     torch.cuda.synchronize()
     log(f"flash_attention: {n} variants within tolerance "
@@ -686,6 +772,204 @@ def check_flash(dev, bw, tc_rate):
         f"{b_ms:.5f} ms ({by})")
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": b_ms, "bound_by": by, "library_ms": lib_ms}
+
+
+def _bwd_inputs(B, S, H, K, D, Dv, dtype, dev, gen, seg=None, **kw):
+    """q, k, v, dO and the plain forward's (o, lse) for one shape."""
+    from repro_torch.kernels import flash_attention as fa
+    q, k, v, do = (torch.randn(s, generator=gen, device=dev).to(dtype)
+                   for s in ((B, S, H, D), (B, S, K, D), (B, S, K, Dv),
+                             (B, S, H, Dv)))
+    o, lse = fa.flash_attention_ref(q, k, v, seg, with_lse=True, **kw)
+    return q, k, v, do, o, lse
+
+
+def _bwd_pair(q, k, v, do, o, lse, seg, kw, what):
+    """The three backward kernels against their plain versions on the same
+    inputs -> max |err| per kernel."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    delta = ops.flash_bwd_delta(o, do)
+    delta_r = fa.flash_bwd_delta_ref(o, do)
+    dq = ops.flash_bwd_dq(q, k, v, do, lse, delta_r, seg, **kw)
+    dq_r = fa.flash_bwd_dq_ref(q, k, v, do, lse, delta_r, seg, **kw)
+    dk, dv = ops.flash_bwd_dkv(q, k, v, do, lse, delta_r, seg, **kw)
+    dk_r, dv_r = fa.flash_bwd_dkv_ref(q, k, v, do, lse, delta_r, seg, **kw)
+    torch.cuda.synchronize()
+    return {"delta": close(delta, delta_r, what + " delta"),
+            "dq": close(dq, dq_r, what + " dq"),
+            "dkv": max(close(dk, dk_r, what + " dk"),
+                       close(dv, dv_r, what + " dv"))}
+
+
+def _lm_rungs():
+    return [int(r) for r in
+            LM_TRAIN_ARGS[LM_TRAIN_ARGS.index("--rungs") + 1].split(",")]
+
+
+def check_flash_bwd(dev, bw, tc_rate):
+    """The three backward kernels (delta, dQ, dK/dV) against their plain
+    versions, each fed the same (q, k, v, dO, o, lse, delta), over every
+    variant (causal, not causal, window, segments; GQA rep 2 and 3; head
+    dims 16 and 64 and two Dv != D; f32 and bf16) within
+    ``flash_attention.tolerance`` (1e-5 of the largest magnitude plus 1e-5
+    relative, and one bf16 ulp in bf16: the sums run in another order and
+    nvcc contracts a*b+c). Then at the LM training path's shapes, B = each
+    rung (2, 4, 8), S 1024, 9/3 heads, head_dim 64, bf16, causal: the
+    forward kernel with its LSE output (as the autograd Function runs it)
+    against the plain forward's (o, lse), and the three backward kernels;
+    all four timed at the top rung. The library yardstick for the backward
+    rows is the backward of ``scaled_dot_product_attention`` at that shape
+    (``torch.autograd.grad`` from a saved forward), one time for the three
+    rows; for the forward row, its forward."""
+    from repro_torch.kernels import flash_attention as fa
+    gen = torch.Generator(device=dev).manual_seed(8)
+    err = {"delta": 0.0, "dq": 0.0, "dkv": 0.0}
+    n = 0
+    shapes = [(S, hk, D, D) for S in (256, 512) for hk in ((4, 2), (9, 3))
+              for D in (16, 64)] + [(256, (9, 3), 64, 32),
+                                    (256, (4, 2), 32, 64)]
+    for S, (H, K), D, Dv in shapes:
+        for dtype in (torch.float32, torch.bfloat16):
+            for variant in ("causal", "noncausal", "window", "segments"):
+                seg = _segments(2, S, dev, S) if variant == "segments" \
+                    else None
+                kw = dict(causal=variant != "noncausal",
+                          window=100 if variant == "window" else 0)
+                ins = _bwd_inputs(2, S, H, K, D, Dv, dtype, dev, gen, seg,
+                                  **kw)
+                got = _bwd_pair(*ins, seg, kw,
+                                f"flash bwd {S} {H}/{K} {D}/{Dv} {dtype} "
+                                f"{variant}")
+                err = {k: max(err[k], got[k]) for k in err}
+                n += 1
+    log(f"flash_attention backward: {n} variants within tolerance "
+        f"(max|err| delta {err['delta']:.3g}, dq {err['dq']:.3g}, dk/dv "
+        f"{err['dkv']:.3g})")
+
+    S, H, K, D = 1024, 9, 3, 64
+    kw = dict(causal=True, window=0)
+    err["fwd"] = 0.0
+    for B in _lm_rungs():
+        q, k, v, do, o, lse = _bwd_inputs(B, S, H, K, D, D, torch.bfloat16,
+                                          dev, gen, **kw)
+        what = f"flash train shape B{B}"
+        o_k, lse_k = fa.flash_attention_cuda(q, k, v, None, with_lse=True,
+                                             **kw)
+        err["fwd"] = max(err["fwd"], close(o_k, o, what + " fwd"))
+        close_lse(lse_k, lse, what + " fwd")
+        got = _bwd_pair(q, k, v, do, o, lse, None, kw, what + " bwd")
+        err = {key: max(e, got.get(key, 0.0)) for key, e in err.items()}
+    log(f"flash_attention forward (with LSE) and backward at the training "
+        f"rungs {_lm_rungs()}: within tolerance (max|err| fwd "
+        f"{err['fwd']:.3g}, delta {err['delta']:.3g}, dq {err['dq']:.3g}, "
+        f"dk/dv {err['dkv']:.3g})")
+    # timed at the top rung: the inputs of the loop's last pass
+    lib = fa._bwd_lib()
+    stream = torch.cuda.current_stream().cuda_stream
+    flib = fa._lib()
+    o_t, lse_t = torch.empty_like(o), torch.empty_like(lse)
+
+    def raw_fwd():
+        flib.tri_flash_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), None,
+                           o_t.data_ptr(), lse_t.data_ptr(), 1, B, S, H, K,
+                           D, D, 1, 0, D ** -0.5, stream)
+
+    pairs = B * H * S * (S + 1) / 2            # causal pairs this run needs
+    e2 = 2                                     # bytes of a bf16 element
+    nq, nkv, nl = B * S * H * D * e2, B * S * K * D * e2, B * H * S * 4
+    fwd_ms = time_ms(raw_fwd, iters=10)
+    fwd_plain = time_ms(lambda: fa.flash_attention_ref(
+        q, k, v, None, with_lse=True, **kw), iters=2, reps=3)
+    fwd_lib = time_ms(lambda: _sdpa(q, k, v, is_causal=True), iters=10)
+    fb_ms, fby = bound(2 * nq + 2 * nkv + nl, pairs * 4 * D, bw, tc_rate)
+    log(f"flash_attention (with LSE) B{B} S{S} H{H}/K{K} D{D} bf16 causal: "
+        f"kernel {fwd_ms:.4f} ms, plain {fwd_plain:.4f} ms, sdpa "
+        f"{fwd_lib:.4f} ms, bound {fb_ms:.5f} ms ({fby})")
+    out = {"flash_attention@lm_train": {
+        "max_abs_err": err["fwd"], "ms": fwd_ms, "plain_ms": fwd_plain,
+        "bound_ms": fb_ms, "bound_by": fby, "library_ms": fwd_lib}}
+    delta = torch.empty((B, H, S), device=dev)
+    dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
+    ptr = lambda t: t.data_ptr()          # noqa: E731
+    dims = (1, B, S, H, K, D, D, 1, 0)
+    raw = {
+        "delta": lambda: lib.tri_flash_bwd_delta(
+            ptr(o), ptr(do), ptr(delta), 1, B, S, H, D, stream),
+        "dq": lambda: lib.tri_flash_bwd_dq(
+            ptr(q), ptr(k), ptr(v), ptr(do), ptr(lse), ptr(delta), None,
+            ptr(dq), *dims, D ** -0.5, stream),
+        "dkv": lambda: lib.tri_flash_bwd_dkv(
+            ptr(q), ptr(k), ptr(v), ptr(do), ptr(lse), ptr(delta), None,
+            ptr(dk), ptr(dv), *dims, D ** -0.5, stream),
+    }
+    plain = {
+        "delta": lambda: fa.flash_bwd_delta_ref(o, do),
+        "dq": lambda: fa.flash_bwd_dq_ref(q, k, v, do, lse, delta, **kw),
+        "dkv": lambda: fa.flash_bwd_dkv_ref(q, k, v, do, lse, delta, **kw),
+    }
+    qg, kg, vg = (x.detach().requires_grad_(True) for x in (q, k, v))
+    o_lib = _sdpa(qg, kg, vg, is_causal=True)
+    do_t = do.transpose(1, 2)
+    lib_ms = time_ms(lambda: torch.autograd.grad(
+        o_lib, (qg, kg, vg), do_t, retain_graph=True), iters=10)
+    work = {   # (bytes: each input read once, each output written once; ops)
+        "delta": (2 * nq + nl, 2 * B * S * H * D),
+        "dq": (2 * nq + 2 * nkv + 2 * nl + nq, pairs * 2 * (3 * D)),
+        "dkv": (2 * nq + 2 * nkv + 2 * nl + 2 * nkv, pairs * 2 * (4 * D)),
+    }
+    for key, name in (("delta", "flash_attention_bwd_delta"),
+                      ("dq", "flash_attention_bwd_dq"),
+                      ("dkv", "flash_attention_bwd_dkv")):
+        ms = time_ms(raw[key], iters=10)
+        plain_ms = time_ms(plain[key], iters=2, reps=3)
+        b_ms, by = bound(*work[key], bw, tc_rate)
+        log(f"{name} B{B} S{S} H{H}/K{K} D{D} bf16 causal: kernel "
+            f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b_ms:.5f} ms "
+            f"({by}), max|err| {err[key]:.3g}")
+        out[name] = {"max_abs_err": err[key], "ms": ms,
+                     "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": by,
+                     "library_ms": lib_ms}
+    log(f"  sdpa backward (all three together) {lib_ms:.4f} ms")
+    return out
+
+
+def check_flash_function(dev):
+    """The differentiable ``ops.flash_attention`` (forward kernel with LSE,
+    then the three backward kernels) against autograd through the plain
+    forward, in f32 on the card: each gradient within 1e-5 of its largest
+    magnitude (the CPU parity test measures 4e-7 between the two
+    formulations; the card adds its own summation order)."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    gen = torch.Generator(device=dev).manual_seed(9)
+    worst, n = 0.0, 0
+    for S, variant in ((256, "causal"), (256, "segments"), (512, "window"),
+                       (1024, "causal")):
+        B, H, K, D = 2, 9, 3, 64
+        seg = _segments(B, S, dev, S + 1) if variant == "segments" else None
+        kw = dict(causal=True, window=100 if variant == "window" else 0)
+        q, k, v, do = (torch.randn(s, generator=gen, device=dev)
+                       for s in ((B, S, H, D), (B, S, K, D), (B, S, K, D),
+                                 (B, S, H, D)))
+        ins = [x.requires_grad_(True) for x in (q, k, v)]
+        before = dict(ops.LAUNCHES)
+        o = ops.flash_attention(*ins, segments=seg, **kw)
+        got = torch.autograd.grad(o, ins, do)
+        for key in ("flash_attention", "flash_attention_bwd_delta",
+                    "flash_attention_bwd_dq", "flash_attention_bwd_dkv"):
+            check(ops.LAUNCHES[key] == before[key] + 1,
+                  f"Function launched {key} once")
+        want = torch.autograd.grad(
+            fa.flash_attention_ref(*ins, seg, **kw), ins, do)
+        torch.cuda.synchronize()
+        for name, g, w in zip(("dq", "dk", "dv"), got, want):
+            gap = float((g - w).abs().max()) / float(w.abs().max())
+            check(gap <= 1e-5, f"Function {S} {variant} {name}: {gap}")
+            worst = max(worst, gap)
+        n += 1
+    log(f"flash_attention Function: gradients of {n} variants within "
+        f"{worst:.3g} of plain autograd (relative to each gradient's max)")
 
 
 def check_decode(dev, bw, tc_rate):
@@ -748,6 +1032,16 @@ def check_decode(dev, bw, tc_rate):
 
 
 # ------------------------------- phase 4b: LM serving, card vs CPU ---
+def _lm_cfg(layers: int):
+    """smollm-135m at full width, cut to ``layers`` layers."""
+    import dataclasses
+    from repro_torch.configs import smollm_135m
+    cfg = smollm_135m.config()
+    seg = ((cfg.stack.segments[0][0], layers),)
+    return dataclasses.replace(cfg, stack=dataclasses.replace(
+        cfg.stack, segments=seg))
+
+
 def check_lm_against_cpu(layers: int = 2, prompt: int = 1024,
                          total: int = 2048, steps: int = 4):
     """One prefill plus ``steps`` teacher-forced decode steps of
@@ -756,15 +1050,10 @@ def check_lm_against_cpu(layers: int = 2, prompt: int = 1024,
     Logits within 4 % of their largest magnitude (the bf16 rounding spread
     the CPU parity test sees against the reference,
     tests/test_torch_lm_serve.py), greedy tokens reported."""
-    import dataclasses
     from repro_torch import tree as tu
-    from repro_torch.configs import smollm_135m
     from repro_torch.models import lm
     from repro_torch.serve.engine import scatter_prefill
-    cfg = smollm_135m.config()
-    seg = ((cfg.stack.segments[0][0], layers),)
-    cfg = dataclasses.replace(cfg, stack=dataclasses.replace(
-        cfg.stack, segments=seg))
+    cfg = _lm_cfg(layers)
     params = lm.lm_init(torch.Generator().manual_seed(3), cfg)
     params = tu.tree_map(lambda x: x.to(torch.bfloat16), params)
     g = torch.Generator().manual_seed(4)
@@ -797,6 +1086,237 @@ def check_lm_against_cpu(layers: int = 2, prompt: int = 1024,
         f"{float(same_top):.2f}")
     check(bool(torch.isfinite(got).all()), "finite logits on the card")
     check(gap <= lim, f"card vs CPU logits {gap} > {lim}")
+
+
+# ------------------------------ phase 4c: LM train step, card vs CPU ---
+def check_lm_step_against_cpu(layers: int = 2, seq: int = 1024,
+                              batch: int = 2):
+    """One slab-resident train step of smollm-135m at full width and
+    ``layers`` layers, S 1024, B 2, on the card (kernels, cuBLAS bf16
+    matmuls) and on the CPU (plain versions), from the same init and
+    batch. The model computes in bf16, so the two differ by bf16 roundings
+    taken after sums in other orders (the CPU parity test against the
+    reference measures up to 1.2e-2 of a leaf's largest gradient,
+    tests/test_torch_lm_train.py): the momentum (the clipped gradient) is
+    held leaf by leaf within 5e-2 of the leaf's largest magnitude, and what
+    follows from it by the update's arithmetic:
+      master   p_card - p_cpu = -lr * (m_card - m_cpu), up to 2^-21 (|p| +
+               |p'_card| + |p'_cpu|): each side rounds once, relative to
+               its own magnitudes
+      copy     within the masters' gap plus half a bf16 step of each
+    loss within rtol 1e-3, codes equal."""
+    from repro_torch.core.precision import TriAccelConfig
+    from repro_torch.data.synthetic import LMTaskStream
+    from repro_torch.train.task import LMTask
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+    cfg = _lm_cfg(layers)
+    tac = TriAccelConfig(ladder="gpu", t_ctrl=1, curvature_method="fisher")
+    tcfg = TrainerConfig(total_steps=10, base_lr=0.05, warmup_steps=2,
+                         grad_clip=1.0, rungs=(batch,), seq_len=seq)
+    data = LMTaskStream(cfg.vocab_size, seq, batch, seed=3).batch(0)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        tr = Trainer(LMTask(cfg, device=dev), tac, tcfg, device=dev)
+        b = {k: v.to(dev) for k, v in data.items()}
+        st, met = tr._step_fn(tr.state, b)
+        out[dev] = (tr.state.params.cpu(), st, met)
+    view = tr.view
+    (p0, sc, mc), (_, sg, mg) = out["cpu"], out["cuda"]
+    cpu = lambda t: t.detach().cpu().float()     # noqa: E731
+    check(bool(mg["grads_finite"]) and bool(torch.isfinite(mg["loss"])),
+          "finite LM step on the card")
+    torch.testing.assert_close(cpu(mg["loss"]), mc["loss"], rtol=1e-3,
+                               atol=0)
+    mo_g, mo_c = cpu(sg.opt_state["mu"]), sc.opt_state["mu"]
+    worst = 0.0
+    for slot in view.slots:
+        rows = slice(slot.row_off, slot.row_off + slot.stack * slot.rows_per)
+        gap = float((mo_g[rows] - mo_c[rows]).abs().max())
+        worst = max(worst, gap / float(mo_c[rows].abs().max()))
+    check(worst <= 5e-2, f"card vs CPU clipped LM gradient: {worst}")
+    lr = float(mc["lr"])
+    check(float(mg["lr"]) == lr, "learning rate")
+    p_g, p_c = cpu(sg.params), sc.params
+    # each side rounds p - lr * m once, relative to its own magnitudes: a
+    # bf16 gradient entry near zero may be many times larger on one side
+    dev_p = ((p_g - p_c) + lr * (mo_g - mo_c)).abs()
+    lim_p = 2.0 ** -21 * (p0.abs() + p_c.abs() + p_g.abs())
+    w = int(torch.argmax(dev_p - lim_p))
+    check(bool((dev_p <= lim_p).all()),
+          f"master = p - lr * m on both devices: at {w} p0 "
+          f"{float(p0.flatten()[w])!r} p {float(p_g.flatten()[w])!r} / "
+          f"{float(p_c.flatten()[w])!r} m {float(mo_g.flatten()[w])!r} / "
+          f"{float(mo_c.flatten()[w])!r} lr {lr!r}")
+    cp_g, cp_c = cpu(sg.compute["slab"]), sc.compute["slab"].float()
+    lim = (p_g - p_c).abs() + 2.0 ** -8 * (p_g.abs() + p_c.abs()) + 2.0 ** -24
+    check(bool(((cp_g - cp_c).abs() <= lim).all()), "LM compute copy")
+    check(torch.equal(sg.control.codes.cpu(), sc.control.codes), "codes")
+    check_layer_views_gradient(tr, {k: v.cuda() for k, v in data.items()})
+    log(f"smollm-135m x{layers} layers, one train step at S {seq}, B "
+        f"{batch}, card vs CPU: loss {float(mg['loss']):.6f} vs "
+        f"{float(mc['loss']):.6f}; momentum (the clipped gradient) within "
+        f"{worst:.3g} of each leaf's max; max|dmaster| "
+        f"{float((p_g - p_c).abs().max()):.3g}; codes "
+        f"{sg.control.codes.tolist()}")
+
+
+def check_layer_views_gradient(tr, batch) -> None:
+    """The stack takes its per-layer views with one ``torch.unbind`` per
+    stacked leaf, whose backward stacks the layers' gradients once; the
+    gradient of the compute slab must equal, bitwise, the one through
+    per-layer indexing ``x[i]`` (whose backward adds a zero tensor the
+    size of the stack per layer). Peak bytes of both are reported."""
+    from repro_torch import tree as tu
+    from repro_torch.core.batch_scaler import measured_peak_bytes
+    from repro_torch.nn import blocks
+
+    def slab_grad():
+        wrt = tr.state.compute["slab"].detach().requires_grad_(True)
+        cp = tr.view.unpack(wrt, like=tr._params_like)
+        total = tr.task.loss(cp, {}, batch, None, None)[0]
+        return torch.autograd.grad(total, wrt)[0]
+
+    g_unbind, peak_unbind = measured_peak_bytes(slab_grad, "cuda")
+    unbind = blocks._layers
+    blocks._layers = lambda tree, n: [tu.tree_map(lambda x: x[i], tree)
+                                      for i in range(n)]
+    try:
+        g_index, peak_index = measured_peak_bytes(slab_grad, "cuda")
+    finally:
+        blocks._layers = unbind
+    check(torch.equal(g_unbind, g_index),
+          "slab gradient through unbind equals the one through indexing")
+    log(f"  slab gradient through per-layer unbind == through indexing, "
+        f"bitwise; peak allocated {peak_unbind / 1e9:.3f} GB vs "
+        f"{peak_index / 1e9:.3f} GB")
+
+
+# --------------------------------- phase 5c: the LM training main path ---
+def lm_train_main_path():
+    """The LM training main path through the launcher:
+    ``launch.train.main(LM_TRAIN_ARGS)`` (smollm-135m at 30 layers and
+    published widths, S 1024, rungs 2/4/8, 20 steps, sgdm, gpu ladder,
+    fisher curvature on b_curv-sized batches) with t_ctrl / t_curv lowered
+    to 5 / 10. The launch counts must equal what the code implies: with
+    remat each layer runs the forward kernel twice a step (forward, and the
+    recompute in backward) and each backward kernel once; the fisher probe
+    runs under ``flash_fallback`` and launches none; an OOM retry would
+    re-run a step (none may happen at this size)."""
+    import contextlib
+    import io
+    import warnings
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as launch_train
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    ops.WARNED_FALLBACKS.clear()
+    printed = io.StringIO()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(printed):
+            tr = launch_train.main(LM_TRAIN_ARGS, t_ctrl=LM_T_CTRL,
+                                   t_curv=LM_T_CURV)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    steps = int(LM_TRAIN_ARGS[LM_TRAIN_ARGS.index("--steps") + 1])
+    L = tr.task.cfg.num_layers
+    fallbacks = [str(w.message) for w in caught
+                 if "kernel gate failed" in str(w.message)]
+    check(not fallbacks and not ops.WARNED_FALLBACKS,
+          f"fallback warnings on the LM training path: {fallbacks}")
+    check(not tr.oom_events, f"OOM events {tr.oom_events}")
+    check(int(tr.state.control.step) == steps, "all steps taken")
+    lines = [json.loads(x) for x in printed.getvalue().splitlines()]
+    check(len(lines) == len(tr.metrics_log) == -(-steps // 10),
+          f"{len(lines)} JSON lines")
+    check(all(math.isfinite(m["loss"]) for m in lines), f"losses {lines}")
+    want = {"flash_attention": 2 * L * steps,
+            "flash_attention_bwd_delta": L * steps,
+            "flash_attention_bwd_dq": L * steps,
+            "flash_attention_bwd_dkv": L * steps,
+            "fused_stats": steps, "fused_apply": steps}
+    for k, n in want.items():
+        check(launches[k] == n, f"{k}: {launches[k]} launches, expected {n}")
+    var, view = lm_train_variant(), lm_train_view()
+    check(tr.view.rows == view.rows and tr.view.num_layers ==
+          view.num_layers, "the LM slab the fused kernels were checked on")
+    check(tr.opt.spec == var["spec"] and tr.tac.ladder == var["ladder"]
+          and tr.tac.stochastic_round == var["sr"]
+          and tr.task.compute_dtype == var["cp_dtype"]
+          and tr.state.compute["slab"].dtype == var["g_dtype"],
+          "the fused update variant the kernels were checked on")
+    lam = tr.state.control.lam
+    check(float(lam.abs().sum()) > 0, "fisher curvature refreshed")
+    check(len(tr.scaler.history) == (steps - 1) // LM_T_CTRL,
+          f"rung controller every {LM_T_CTRL} steps")
+    log(f"LM training main path: launch.train.main({' '.join(LM_TRAIN_ARGS)})"
+        f" with t_ctrl {LM_T_CTRL}, t_curv {LM_T_CURV}: {steps} steps in "
+        f"{wall:.2f} s (init included), {L} layers, peak allocated "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB")
+    log(f"  logged loss {[round(m['loss'], 4) for m in lines]} at steps "
+        f"{[m['step'] for m in lines]}, finite steps all {steps}")
+    log(f"  rung history {tr.scaler.history}, measured peak bytes per rung "
+        f"{ {k: int(v) for k, v in tr.measured_bytes.items()} }")
+    log(f"  codes {tr.state.control.codes.tolist()}, fisher curvature per "
+        f"layer {[float(f'{x:.3g}') for x in lam.tolist()]}")
+    log(f"  launches {launches}")
+    return tr, launches
+
+
+def time_lm_rungs(tr, per_rung: int = 6):
+    """Median step time per rung of the main path's trainer: each rung in
+    turn for ``per_rung`` steps, host wall time of each step ending in a
+    device sync. Each rung's first step (which also measures the rung's
+    peak bytes if it is new) and steps that refresh the fisher curvature
+    are left out."""
+    out = {}
+    for i, rung in enumerate(tr.scaler.rungs):
+        times = []
+        for j in range(per_rung):
+            tr.scaler.idx = i
+            step = int(tr.state.control.step)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            tr.run(1)
+            torch.cuda.synchronize()
+            if j and step % tr.tac.t_curv:   # not the rung's first step
+                times.append((time.perf_counter() - t0) * 1e3)
+        out[rung] = statistics.median(times)
+    peaks_b = {k: int(v) for k, v in tr.measured_bytes.items()}
+    log(f"LM step time by rung (median ms, {per_rung} steps a rung): "
+        f"{ {r: round(ms, 3) for r, ms in out.items()} }; measured peak "
+        f"bytes per rung {peaks_b}")
+    return out
+
+
+def profile_lm_step(tr) -> None:
+    """Where an LM train step's time goes: one step at the top rung."""
+    tr.scaler.idx = len(tr.scaler.rungs) - 1
+    if int(tr.state.control.step) % tr.tac.t_curv == 0:
+        tr.run(1)                       # keep the fisher probe out
+
+    def family(n):
+        if "dq_kernel" in n or "dkv_kernel" in n or "delta_kernel" in n:
+            return "flash backward (this port's kernels)"
+        if "fwd_kernel" in n:
+            return "flash forward (this port's kernel)"
+        if "stats_partials" in n or "apply_kernel" in n \
+                or "reduce_partials" in n:
+            return "fused update (this port's kernels)"
+        if any(w in n for w in ("gemm", "gemv", "nvjet", "xmma", "cutlass",
+                                "sm90", "splitk")):
+            return "matmul (projections, FFN, readout; cuBLAS)"
+        if "memcpy" in n or "memset" in n or "copy" in n:
+            return "casts and copies"
+        if "reduce" in n:
+            return "reduction (norms, logsumexp, sums)"
+        return "elementwise (RoPE, norms, SiLU, softmax-xent, residuals)"
+
+    _profile(lambda: tr.run(1), 1, family,
+             f"1 LM train step at rung {tr.scaler.microbatch}")
 
 
 # ------------------------------------ phase 5b: the serving main path ---
@@ -971,9 +1491,18 @@ def main() -> int:
            "fused_apply": check_apply_main(view, dev, bw, f32_ops)}
     res["fused_apply"]["max_abs_err"] = max(res["fused_apply"]["max_abs_err"],
                                             check_apply_variants(dev))
+    lm_view, lm_var = lm_train_view(), lm_train_variant()
+    res["fused_stats@lm_train"] = check_stats(
+        lm_view, dev, bw, f32_ops, g_dtype=lm_var["g_dtype"],
+        what="smollm-135m")
+    res["fused_apply@lm_train"] = check_apply_main(
+        lm_view, dev, bw, f32_ops, what="smollm-135m", **lm_var)
+    del lm_view
     res["qdq_cast"] = check_qdq(dev, bw, f32_ops)
     res["flash_attention"] = check_flash(dev, bw, tc_ops)
     res["flash_decode"] = check_decode(dev, bw, tc_ops)
+    res.update(check_flash_bwd(dev, bw, tc_ops))
+    check_flash_function(dev)
     log(f"kernel checks in {time.perf_counter() - t_phase:.1f} s")
     if args.kernels_only:
         return 0
@@ -981,21 +1510,40 @@ def main() -> int:
     t_phase = time.perf_counter()
     check_step_against_cpu()
     check_lm_against_cpu()
+    check_lm_step_against_cpu()
     log(f"card-vs-CPU checks in {time.perf_counter() - t_phase:.1f} s")
     t_phase = time.perf_counter()
     launches = main_path(args.steps, args.batch0)
     sess, serve_launches = serve_main_path()
-    for k in ("qdq_cast", "flash_attention", "flash_decode"):
+    for k in ("qdq_cast", "flash_decode"):
         launches[k] = serve_launches[k]
     log(f"main paths in {time.perf_counter() - t_phase:.1f} s")
     profile_steps(args.batch0)
     profile_decode(sess)
+    del sess                  # the LM trainer's measured bytes are its own
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    lm_tr, lm_launches = lm_train_main_path()
+    # a kernel that runs on two paths at different shapes has a row for
+    # each: its launches on that path beside its time at that path's shape
+    launches["flash_attention"] = serve_launches["flash_attention"]
+    for k in ("fused_stats", "fused_apply", "flash_attention"):
+        launches[f"{k}@lm_train"] = lm_launches[k]
+    for k in ("flash_attention_bwd_delta", "flash_attention_bwd_dq",
+              "flash_attention_bwd_dkv"):
+        launches[k] = lm_launches[k]
+    log(f"LM training main path in {time.perf_counter() - t_phase:.1f} s")
+    time_lm_rungs(lm_tr)
+    profile_lm_step(lm_tr)
 
-    rows = []
-    for kname, (src, replaces) in KERNELS.items():
-        rows.append({"name": kname, "route": "cuda", "source": src,
-                     "replaces": replaces, "launches": launches[kname],
-                     **res[kname]})
+    rows = [{"name": rname, "route": "cuda", "source": src,
+             "replaces": replaces, "launches": launches[rname],
+             **res[rname]}
+            for kname, (src, replaces) in KERNELS.items()
+            for rname in res if rname.split("@")[0] == kname]
+    check(len(rows) == len(res) and {r["name"].split("@")[0] for r in rows}
+          == set(KERNELS), "a row for every kernel and every result")
     print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -57,6 +57,15 @@ class MemoryModel:
     #: their overlay entries stay pinned above the cap
     poisoned: set = dataclasses.field(default_factory=set)
 
+    @classmethod
+    def for_transformer(cls, param_count, d_model, num_layers, opt_slots=2,
+                        remat=True):
+        # with block remat only block boundaries are resident:
+        # ~2.5 activations of width d_model per layer per token (bf16 = 2B)
+        act = (2.5 if remat else 14.0) * d_model * 2.0
+        return cls(param_count=param_count, opt_slots=opt_slots,
+                   act_bytes_per_token_layer=act, num_layers=num_layers)
+
     def param_state_bytes(self) -> float:
         # bf16 compute copy + fp32 master + opt slots fp32 + bf16 grads
         return self.param_count * (2.0 + 4.0 + 4.0 * self.opt_slots + 2.0)

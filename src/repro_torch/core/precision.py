@@ -21,6 +21,16 @@ LADDERS = {"gpu": ("fp16", "bf16", "fp32"), "tpu": ("fp8", "bf16", "fp32")}
 FP8_MAX = 448.0  # float8_e4m3fn max normal
 
 
+def refuse_qdq(codes, qdq_fn) -> None:
+    """The resident fused path passes no in-loss precision emulation: the
+    apply kernel casts. Anything else belongs to ``reference_step``."""
+    if codes is not None or qdq_fn is not None:
+        raise NotImplementedError(
+            "in-loss QDQ precision emulation belongs to reference_step, "
+            "which is not ported yet (ROADMAP A6); the fused path casts in "
+            "the apply kernel")
+
+
 @dataclasses.dataclass(frozen=True)
 class TriAccelConfig:
     # §3.1 precision

@@ -1,12 +1,15 @@
 """Flash attention: the prefill forward (causal, static window, optional
-segments, optional LSE residual) and the ragged single-token decode.
+segments, optional LSE residual), its backward (delta, dQ, dK/dV from the
+saved LSE) and the ragged single-token decode.
 
 Two forms of each: the hand-written CUDA kernels for Hopper
-(``csrc/flash_attention.cu``, bound through ``ctypes``: ``*_cuda``) and
-their plain PyTorch versions (``*_ref``), which mirror
-``repro/kernels/ref.py`` (full softmax with the finite ``NEG_INF``).
-``kernels.ops`` routes a CPU tensor to the plain version and a CUDA tensor
-to the kernel, behind the reference's dispatch gates.
+(``csrc/flash_attention.cu`` and ``csrc/flash_attention_bwd.cu``, bound
+through ``ctypes``: ``*_cuda``) and their plain PyTorch versions
+(``*_ref``), which mirror ``repro/kernels/ref.py`` (full softmax with the
+finite ``NEG_INF``) and, for the backward, the math of the reference's
+Pallas backward over full (S, S) matrices in f32. ``kernels.ops`` routes a
+CPU tensor to the plain version and a CUDA tensor to the kernel, behind
+the reference's dispatch gates.
 
 Shapes: q (B, S, H, D); k (B, S, K, D); v (B, S, K, Dv); H % K == 0 (GQA:
 q head h reads kv head h // (H/K)). Decode: q (B, 1, H, D) against a
@@ -35,9 +38,11 @@ BK = 256
 #: takes the kernel only where one of them tiles the cache length
 DECODE_BLOCKS = (256, 128, 64, 32, 16, 8)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-#: the CUDA forward's query tile (rows a block); S must be a multiple
+#: the CUDA kernels' query tile (rows a block); S must be a multiple
 CUDA_BQ = 64
 MAX_HEAD_DIM = 256
+#: the backward kernels keep four (64, D+1) f32 tiles in shared memory
+BWD_MAX_HEAD_DIM = 128
 
 
 def decode_block(L: int) -> Optional[int]:
@@ -55,18 +60,12 @@ def decode_block(L: int) -> Optional[int]:
 
 
 # ================================================= plain versions =======
-def flash_attention_ref(q, k, v, segments=None, *, causal: bool = True,
-                        window: int = 0, scale: Optional[float] = None,
-                        with_lse: bool = False):
-    """Full-softmax attention -> o (B, S, H, Dv) in q's dtype, and with
-    ``with_lse`` the (B, H, S) f32 logsumexp of each row's valid scores."""
+def _scores(q, k, segments, causal, window, scale):
+    """-> (q * scale as (B, S, K, rep, D) f32, the masked f32 scores
+    (B, S, K, rep, S) with the finite NEG_INF at masked pairs)."""
     B, S, H, D = q.shape
     K = k.shape[2]
-    Dv = v.shape[-1]
-    rep = H // K
-    if scale is None:
-        scale = D ** -0.5
-    qr = q.reshape(B, S, K, rep, D).float() * scale
+    qr = q.reshape(B, S, K, H // K, D).float() * scale
     s = torch.einsum("bqkrd,bskd->bqkrs", qr, k.float())
     idx = torch.arange(S, device=q.device)
     d = idx[:, None] - idx[None, :]
@@ -77,14 +76,81 @@ def flash_attention_ref(q, k, v, segments=None, *, causal: bool = True,
         ok = ok & (d < window)[None]
     if segments is not None:
         ok = ok & (segments[:, :, None] == segments[:, None, :])
-    s = torch.where(ok[:, :, None, None, :], s, NEG_INF)
+    return qr, torch.where(ok[:, :, None, None, :], s, NEG_INF)
+
+
+def flash_attention_ref(q, k, v, segments=None, *, causal: bool = True,
+                        window: int = 0, scale: Optional[float] = None,
+                        with_lse: bool = False):
+    """Full-softmax attention -> o (B, S, H, Dv) in q's dtype, and with
+    ``with_lse`` the (B, H, S) f32 logsumexp of each row's valid scores."""
+    B, S, H, D = q.shape
+    if scale is None:
+        scale = D ** -0.5
+    _, s = _scores(q, k, segments, causal, window, scale)
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bqkrs,bskd->bqkrd", p, v.float())
-    out = out.reshape(B, S, H, Dv).to(q.dtype)
+    out = out.reshape(B, S, H, v.shape[-1]).to(q.dtype)
     if not with_lse:
         return out
     lse = torch.logsumexp(s, dim=-1).reshape(B, S, H).permute(0, 2, 1)
     return out, lse.contiguous()
+
+
+def flash_bwd_delta_ref(o, do):
+    """delta (B, H, S) f32 = sum over Dv of dO * O, from o, do
+    (B, S, H, Dv)."""
+    return (o.float() * do.float()).sum(-1).permute(0, 2, 1).contiguous()
+
+
+def _bwd_probs(q, k, v, do, lse, delta, segments, causal, window, scale):
+    """-> (q * scale, dO, p, ds) as (B, S, K, rep, ...) f32: p rebuilt from
+    the LSE (exactly 0 at masked pairs), ds = p * (dO v^T - delta)."""
+    B, S, H, _ = q.shape
+    K = k.shape[2]
+    qr, s = _scores(q, k, segments, causal, window, scale)
+    p = torch.exp(s - lse.permute(0, 2, 1).reshape(B, S, K, H // K, 1))
+    dof = do.reshape(B, S, K, H // K, v.shape[-1]).float()
+    dp = torch.einsum("bqkrd,bskd->bqkrs", dof, v.float())
+    ds = p * (dp - delta.permute(0, 2, 1).reshape(B, S, K, H // K, 1))
+    return qr, dof, p, ds
+
+
+def flash_bwd_dq_ref(q, k, v, do, lse, delta, segments=None, *,
+                     causal: bool = True, window: int = 0,
+                     scale: Optional[float] = None):
+    """dq (B, S, H, D) in q's dtype = (ds k) * scale."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    _, _, _, ds = _bwd_probs(q, k, v, do, lse, delta, segments, causal,
+                             window, scale)
+    dq = torch.einsum("bqkrs,bskd->bqkrd", ds, k.float()) * scale
+    return dq.reshape(q.shape).to(q.dtype)
+
+
+def flash_bwd_dkv_ref(q, k, v, do, lse, delta, segments=None, *,
+                      causal: bool = True, window: int = 0,
+                      scale: Optional[float] = None):
+    """(dk (B, S, K, D), dv (B, S, K, Dv)) in k's / v's dtype: ds^T (q
+    scale) and p^T dO, summed over the H/K q heads of each kv head."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    qr, dof, p, ds = _bwd_probs(q, k, v, do, lse, delta, segments, causal,
+                                window, scale)
+    dk = torch.einsum("bqkrs,bqkrd->bskd", ds, qr)
+    dv = torch.einsum("bqkrs,bqkrd->bskd", p, dof)
+    return dk.to(k.dtype), dv.to(v.dtype)
+
+
+def flash_attention_bwd_ref(q, k, v, o, lse, do, segments=None, *,
+                            causal: bool = True, window: int = 0,
+                            scale: Optional[float] = None):
+    """(dq, dk, dv) from the saved (q, k, v, o, lse) and dO: the three
+    plain backward parts in the order the kernels run."""
+    delta = flash_bwd_delta_ref(o, do)
+    kw = dict(causal=causal, window=window, scale=scale)
+    dq = flash_bwd_dq_ref(q, k, v, do, lse, delta, segments, **kw)
+    return (dq,) + flash_bwd_dkv_ref(q, k, v, do, lse, delta, segments, **kw)
 
 
 def flash_decode_ref(q, k, v, lengths, *, scale: Optional[float] = None):
@@ -138,6 +204,18 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
+def _bwd_lib() -> ctypes.CDLL:
+    lib = _build.load("flash_attention_bwd")
+    if lib.tri_flash_bwd_dq.argtypes is None:  # first use: declare the ABI
+        lib.tri_flash_bwd_delta.argtypes = [_P] * 3 + [_I] * 5 + [_P]
+        lib.tri_flash_bwd_delta.restype = _I
+        lib.tri_flash_bwd_dq.argtypes = [_P] * 8 + [_I] * 9 + [_F, _P]
+        lib.tri_flash_bwd_dq.restype = _I
+        lib.tri_flash_bwd_dkv.argtypes = [_P] * 9 + [_I] * 9 + [_F, _P]
+        lib.tri_flash_bwd_dkv.restype = _I
+    return lib
+
+
 def _check(t: torch.Tensor, name: str, dtype, shape) -> None:
     if not t.is_cuda:
         raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
@@ -160,6 +238,11 @@ def _dims(q, k, v):
     if D > MAX_HEAD_DIM or Dv > MAX_HEAD_DIM:
         raise ValueError(f"head dims ({D}, {Dv}) above {MAX_HEAD_DIM}")
     return B, S, H, K, D, Dv
+
+
+def _raise_on(rc: int, what: str) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{what}: CUDA launch failed with cudaError {rc}")
 
 
 def flash_attention_cuda(q, k, v, segments=None, *, causal: bool = True,
@@ -195,10 +278,92 @@ def flash_attention_cuda(q, k, v, segments=None, *, causal: bool = True,
             _DTYPE_CODE[q.dtype], B, S, H, K, D, Dv, int(bool(causal)),
             int(window or 0), float(scale),
             torch.cuda.current_stream(dev).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(
-            f"flash_attention: CUDA launch failed with cudaError {rc}")
+    _raise_on(rc, "flash_attention")
     return (o, lse) if with_lse else o
+
+
+def flash_bwd_delta_cuda(o, do):
+    """The delta kernel -> (B, H, S) f32, a fresh tensor."""
+    if o.dtype not in _DTYPE_CODE:
+        raise ValueError(f"o: dtype {o.dtype} not in {tuple(_DTYPE_CODE)}")
+    B, S, H, Dv = o.shape
+    _check(o, "o", o.dtype, (B, S, H, Dv))
+    _check(do, "do", o.dtype, (B, S, H, Dv))
+    if do.device != o.device:
+        raise ValueError("flash_bwd_delta inputs lie on different devices")
+    delta = torch.empty((B, H, S), dtype=torch.float32, device=o.device)
+    with torch.cuda.device(o.device):
+        rc = _bwd_lib().tri_flash_bwd_delta(
+            o.data_ptr(), do.data_ptr(), delta.data_ptr(),
+            _DTYPE_CODE[o.dtype], B, S, H, Dv,
+            torch.cuda.current_stream(o.device).cuda_stream)
+    _raise_on(rc, "flash_bwd_delta")
+    return delta
+
+
+def _bwd_args(q, k, v, do, lse, delta, segments):
+    """Check the backward kernels' inputs -> (dims, int32 segments or
+    None)."""
+    B, S, H, K, D, Dv = _dims(q, k, v)
+    if S % CUDA_BQ:
+        raise ValueError(f"seq len {S} not a multiple of {CUDA_BQ}")
+    if D > BWD_MAX_HEAD_DIM or Dv > BWD_MAX_HEAD_DIM:
+        raise ValueError(f"head dims ({D}, {Dv}) above the backward "
+                         f"kernels' {BWD_MAX_HEAD_DIM}")
+    _check(q, "q", q.dtype, (B, S, H, D))
+    _check(k, "k", q.dtype, (B, S, K, D))
+    _check(v, "v", q.dtype, (B, S, K, Dv))
+    _check(do, "do", q.dtype, (B, S, H, Dv))
+    _check(lse, "lse", torch.float32, (B, H, S))
+    _check(delta, "delta", torch.float32, (B, H, S))
+    seg = None
+    if segments is not None:
+        seg = segments.to(torch.int32).contiguous()
+        _check(seg, "segments", torch.int32, (B, S))
+    if any(t.device != q.device for t in (k, v, do, lse, delta)) or (
+            seg is not None and seg.device != q.device):
+        raise ValueError("flash backward inputs lie on different devices")
+    return (B, S, H, K, D, Dv), seg
+
+
+def flash_bwd_dq_cuda(q, k, v, do, lse, delta, segments=None, *,
+                      causal: bool = True, window: int = 0,
+                      scale: Optional[float] = None):
+    """The dQ kernel -> dq (B, S, H, D) in q's dtype, a fresh tensor."""
+    (B, S, H, K, D, Dv), seg = _bwd_args(q, k, v, do, lse, delta, segments)
+    if scale is None:
+        scale = D ** -0.5
+    dq = torch.empty_like(q)
+    with torch.cuda.device(q.device):
+        rc = _bwd_lib().tri_flash_bwd_dq(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(),
+            seg.data_ptr() if seg is not None else None, dq.data_ptr(),
+            _DTYPE_CODE[q.dtype], B, S, H, K, D, Dv, int(bool(causal)),
+            int(window or 0), float(scale),
+            torch.cuda.current_stream(q.device).cuda_stream)
+    _raise_on(rc, "flash_bwd_dq")
+    return dq
+
+
+def flash_bwd_dkv_cuda(q, k, v, do, lse, delta, segments=None, *,
+                       causal: bool = True, window: int = 0,
+                       scale: Optional[float] = None):
+    """The dK/dV kernel -> (dk, dv) in k's / v's dtype, fresh tensors."""
+    (B, S, H, K, D, Dv), seg = _bwd_args(q, k, v, do, lse, delta, segments)
+    if scale is None:
+        scale = D ** -0.5
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    with torch.cuda.device(q.device):
+        rc = _bwd_lib().tri_flash_bwd_dkv(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(),
+            seg.data_ptr() if seg is not None else None, dk.data_ptr(),
+            dv.data_ptr(), _DTYPE_CODE[q.dtype], B, S, H, K, D, Dv,
+            int(bool(causal)), int(window or 0), float(scale),
+            torch.cuda.current_stream(q.device).cuda_stream)
+    _raise_on(rc, "flash_bwd_dkv")
+    return dk, dv
 
 
 def flash_decode_cuda(q, k, v, lengths, *, scale: Optional[float] = None):
@@ -226,7 +391,5 @@ def flash_decode_cuda(q, k, v, lengths, *, scale: Optional[float] = None):
             q.data_ptr(), k.data_ptr(), v.data_ptr(), lens.data_ptr(),
             o.data_ptr(), _DTYPE_CODE[q.dtype], B, L, H, K, D, Dv,
             float(scale), torch.cuda.current_stream(dev).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(
-            f"flash_decode: CUDA launch failed with cudaError {rc}")
+    _raise_on(rc, "flash_decode")
     return o

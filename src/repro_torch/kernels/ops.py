@@ -11,10 +11,19 @@ The attention gates are the reference's, constants included (``BQ = BK =
 256``, ``DECODE_BLOCKS``): where a gate fails, the call runs the chunked or
 naive attention of ``nn.attention`` with the reference's one-time warning,
 as the reference does.
+
+``flash_attention`` is differentiable: where grad is on and an input needs
+it, the kernel path is a ``torch.autograd.Function`` whose forward runs the
+forward kernel with the LSE residual and whose backward runs the three
+backward kernels (delta, dQ, dK/dV), as the reference's ``custom_vjp``.
+``flash_fallback()`` pins the call to the chunked/naive paths, which torch
+differentiates itself.
 """
 from __future__ import annotations
 
+import contextlib
 import operator
+import threading
 import warnings
 
 import torch
@@ -25,7 +34,9 @@ from repro_torch.kernels import qdq_cast as _qc
 
 #: kernel name -> launches since the last ``reset_launches()``
 LAUNCHES = {"fused_stats": 0, "fused_apply": 0, "qdq_cast": 0,
-            "flash_attention": 0, "flash_decode": 0}
+            "flash_attention": 0, "flash_attention_bwd_delta": 0,
+            "flash_attention_bwd_dq": 0, "flash_attention_bwd_dkv": 0,
+            "flash_decode": 0}
 #: fallback reasons already warned about (one warning per reason)
 WARNED_FALLBACKS: set = set()
 
@@ -74,6 +85,29 @@ def qdq_cast(x, code, ladder: str = "tpu", amax=None):
 
 
 # ------------------------------------------------------------ dispatch -----
+_FALLBACK = threading.local()
+
+
+@contextlib.contextmanager
+def flash_fallback(flag: bool = True):
+    """Pin ``flash_attention`` below to the chunked/naive paths even where
+    the kernel gate holds (no warning), for the calling thread. The
+    reference pins its curvature probes there (forward-mode AD cannot
+    cross its custom_vjp); the port's curvature loss does the same, so the
+    probes launch no attention kernel."""
+    prev = fallback_forced()
+    _FALLBACK.flag = bool(flag)
+    try:
+        yield
+    finally:
+        _FALLBACK.flag = prev
+
+
+def fallback_forced() -> bool:
+    """Is ``flash_fallback`` in force on this thread?"""
+    return getattr(_FALLBACK, "flag", False)
+
+
 def _static_window(window):
     """Integral window -> python int (0 = unwindowed); None for a tensor
     window, which the kernel cannot specialize on."""
@@ -142,35 +176,101 @@ def _note_fallback(reason: str) -> None:
             "chunked/naive fallback", stacklevel=3)
 
 
-def _flash_kernel(q, k, v, segments, causal, window, scale):
+def _flash_kernel(q, k, v, segments, causal, window, scale,
+                  with_lse=False):
     if q.device.type == "cpu":
         return _fa.flash_attention_ref(q, k, v, segments, causal=causal,
-                                       window=window, scale=scale)
+                                       window=window, scale=scale,
+                                       with_lse=with_lse)
     out = _fa.flash_attention_cuda(q.contiguous(), k.contiguous(),
                                    v.contiguous(), segments, causal=causal,
-                                   window=window, scale=scale)
+                                   window=window, scale=scale,
+                                   with_lse=with_lse)
     LAUNCHES["flash_attention"] += 1
     return out
 
 
+def flash_bwd_delta(o, do):
+    """delta (B, H, S) f32 = sum over Dv of dO * O."""
+    if o.device.type == "cpu":
+        return _fa.flash_bwd_delta_ref(o, do)
+    out = _fa.flash_bwd_delta_cuda(o, do)
+    LAUNCHES["flash_attention_bwd_delta"] += 1
+    return out
+
+
+def flash_bwd_dq(q, k, v, do, lse, delta, segments=None, *, causal=True,
+                 window=0, scale=None):
+    """dq (B, S, H, D) from the saved residuals, dO and delta."""
+    kw = dict(causal=causal, window=window, scale=scale)
+    if q.device.type == "cpu":
+        return _fa.flash_bwd_dq_ref(q, k, v, do, lse, delta, segments, **kw)
+    out = _fa.flash_bwd_dq_cuda(q, k, v, do, lse, delta, segments, **kw)
+    LAUNCHES["flash_attention_bwd_dq"] += 1
+    return out
+
+
+def flash_bwd_dkv(q, k, v, do, lse, delta, segments=None, *, causal=True,
+                  window=0, scale=None):
+    """(dk, dv), summed over the q heads of each kv head."""
+    kw = dict(causal=causal, window=window, scale=scale)
+    if q.device.type == "cpu":
+        return _fa.flash_bwd_dkv_ref(q, k, v, do, lse, delta, segments, **kw)
+    out = _fa.flash_bwd_dkv_cuda(q, k, v, do, lse, delta, segments, **kw)
+    LAUNCHES["flash_attention_bwd_dkv"] += 1
+    return out
+
+
+class _FlashAttention(torch.autograd.Function):
+    """The kernel path as one differentiable op: forward kernel with the LSE
+    residual, then delta, dQ and dK/dV kernels (plain versions on the CPU).
+    ``segments`` gets no gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, segments, causal, window, scale):
+        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+        o, lse = _flash_kernel(q, k, v, segments, causal, window, scale,
+                               with_lse=True)
+        ctx.save_for_backward(q, k, v, o, lse, segments)
+        ctx.kw = dict(causal=causal, window=window, scale=scale)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse, segments = ctx.saved_tensors
+        do = do.to(o.dtype).contiguous()
+        delta = flash_bwd_delta(o, do)
+        dq = flash_bwd_dq(q, k, v, do, lse, delta, segments, **ctx.kw)
+        dk, dv = flash_bwd_dkv(q, k, v, do, lse, delta, segments, **ctx.kw)
+        return dq, dk, dv, None, None, None, None
+
+
 def flash_attention(q, k, v, q_pos=None, k_pos=None, *, segments=None,
                     causal=True, window=None, scale=None):
-    """Attention through the forward kernel where the reference's gate
-    holds (self-attention, Sq == Sk divisible by 256, matching q/k head
-    dims, a static window, positions None or the standard arange — or
-    segments with positions declared segment-standard); the chunked or
-    naive path of ``nn.attention`` elsewhere."""
+    """Attention through the kernels where the reference's gate holds
+    (self-attention, Sq == Sk divisible by 256, matching q/k head dims, a
+    static window, positions None or the standard arange — or segments
+    with positions declared segment-standard) and ``flash_fallback`` is
+    off: the forward kernel alone, or with grad the differentiable op whose
+    backward runs the backward kernels. The chunked or naive path of
+    ``nn.attention`` elsewhere."""
     B, Sq = q.shape[0], q.shape[1]
     Sk = k.shape[1]
     win = _static_window(window)
     if scale is None:
         scale = q.shape[-1] ** -0.5
+    forced = fallback_forced()
     reason = kernel_fallback_reason(q.shape, k.shape, v.shape, q_pos, k_pos,
                                     window, segments)
-    if not reason:
+    if not forced and not reason:
+        if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                        or v.requires_grad):
+            return _FlashAttention.apply(q, k, v, segments, bool(causal),
+                                         win, float(scale))
         return _flash_kernel(q, k, v, segments, bool(causal), win,
                              float(scale))
-    _note_fallback(reason)
+    if not forced:
+        _note_fallback(reason)
     from repro_torch.nn.attention import (_chunked_attention,
                                           _naive_attention)
     if win is not None:

@@ -1,7 +1,7 @@
 """Architecture registry: --arch ids -> config modules and tasks, as
-``repro/models/registry.py``. The port serves ``smollm-135m`` and trains
-``resnet18``; the other architectures raise ``NotImplementedError`` until
-the slice that brings them."""
+``repro/models/registry.py``. The port trains and serves ``smollm-135m``
+and trains ``resnet18``; the other architectures raise
+``NotImplementedError`` until the slice that brings them."""
 from __future__ import annotations
 
 import importlib

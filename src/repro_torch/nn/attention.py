@@ -5,8 +5,10 @@ sliding windows, over three execution paths, as ``repro/nn/attention.py``:
                   fallback;
   * ``chunked`` — online softmax over (q, k) chunks, O(chunk^2) score
                   memory; the fallback where the kernel gate fails;
-  * ``flash``   — the hand-written forward kernel through
-                  ``kernels.ops.flash_attention`` (plain version on the CPU).
+  * ``flash``   — the hand-written kernels through
+                  ``kernels.ops.flash_attention``: the forward, and with
+                  grad the backward kernels too (plain versions on the
+                  CPU).
 
 GQA decode over an unwindowed full-length cache goes through the ragged
 decode kernel (``kernels.ops.flash_decode``): row b reads its live
@@ -60,6 +62,26 @@ def segment_positions(flag: bool = True):
         yield
     finally:
         _SEG_POS.flag = prev
+
+
+def dispatch_flags():
+    """The calling thread's attention dispatch declarations: (standard
+    positions, segment positions, ``kernels.ops.flash_fallback``). A layer
+    recomputed in backward runs on autograd's thread, where the flags are
+    unset; ``dispatch_context`` restores them there."""
+    from repro_torch.kernels import ops
+    return (getattr(_STD_POS, "flag", False),
+            getattr(_SEG_POS, "flag", False), ops.fallback_forced())
+
+
+@contextlib.contextmanager
+def dispatch_context(flags):
+    """Enter the declarations ``dispatch_flags()`` captured."""
+    from repro_torch.kernels import ops
+    std, seg, forced = flags
+    with std_positions(std), segment_positions(seg), \
+            ops.flash_fallback(forced):
+        yield
 
 
 def packed_positions(segments: torch.Tensor) -> torch.Tensor:

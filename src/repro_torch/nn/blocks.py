@@ -6,18 +6,23 @@ reference's ``lax.scan`` layout, so weights cross unchanged); the port
 walks that axis with a Python loop. Caches are stacked the same way,
 (layers, B, ...), and updated in place by decode.
 
-Ported so far: ``gqa`` mixing with the dense gated FFN, in the ``prefill``
-and ``decode`` modes (the serving path). Train mode, MLA, SSM, RG-LRU,
-MoE and cross-attention blocks wait for their slices.
+Ported so far: ``gqa`` mixing with the dense gated FFN, in the ``train``,
+``prefill`` and ``decode`` modes. In train mode each layer runs under
+``torch.utils.checkpoint`` when ``remat`` (the reference's
+``jax.checkpoint``), so backward recomputes it. MLA, SSM, RG-LRU, MoE and
+cross-attention blocks wait for their slices.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import tree as tu
+from repro_torch.core.precision import refuse_qdq
 from repro_torch.nn import attention as attn_lib
 from repro_torch.nn.attention import AttnConfig
 from repro_torch.nn.layers import (activation, dense, dense_init, rmsnorm,
@@ -96,25 +101,28 @@ def block_init_cache(bd: BlockDef, sc: StackConfig, batch: int, length: int,
 
 def _block_fwd(p, x, pos, bd: BlockDef, sc: StackConfig, mode: str,
                cache=None, index=None, segments=None):
-    """-> (x, new_cache) for one block in {prefill, decode}."""
+    """-> (x, new_cache) for one block in {train, prefill, decode}; the
+    cache is None in train mode."""
     _check_block(bd)
     h = rmsnorm(p["norm1"], x, sc.norm_eps)
     window = bd.window or None
+    c = None
     if mode == "decode":
         y, c = attn_lib.gqa_decode(p["mix"], h, cache["mix"], index, sc.attn,
                                    window=window)
     elif mode == "prefill":
         y, c = attn_lib.gqa_fwd(p["mix"], h, pos, sc.attn, window=window,
                                 return_cache=True, segments=segments)
+    elif mode == "train":
+        y = attn_lib.gqa_fwd(p["mix"], h, pos, sc.attn, window=window,
+                             segments=segments)
     else:
-        raise NotImplementedError(
-            f"mode {mode!r}: the train mode comes with the LM training "
-            "slice of the port")
+        raise ValueError(f"unknown mode {mode!r}")
     x = x + y
     if bd.ffn != "none":
         x = x + ffn_apply(p["ffn"], rmsnorm(p["norm2"], x, sc.norm_eps),
                           sc.act)
-    return x, {"mix": c}
+    return x, (None if c is None else {"mix": c})
 
 
 # ---------------------------------------------------------------- stack ----
@@ -140,26 +148,60 @@ def stack_init_cache(sc: StackConfig, batch: int, length: int,
     return caches
 
 
-def _layer(tree, i: int):
-    return tu.tree_map(lambda x: x[i], tree)
+def _layers(tree, n: int):
+    """The ``n`` per-layer views of a stacked tree, from one
+    ``torch.unbind`` per leaf: its backward stacks the layers' gradients
+    once, where indexing ``x[i]`` would add a zero tensor the size of the
+    whole stack per layer."""
+    leaves, treedef = tu.flatten(tree)
+    cols = [torch.unbind(l) for l in leaves]
+    return [tu.unflatten(treedef, [c[i] for c in cols]) for i in range(n)]
 
 
-def stack_fwd(params, x, pos, sc: StackConfig, mode: str = "prefill",
-              caches=None, index=None, segments=None):
-    """Run the stack -> (x, caches). Prefill returns fresh stacked caches
-    (layers, B, S, ...); decode updates ``caches`` in place and returns
-    them."""
+def _train_layer(gpi, x, pos, defs, sc: StackConfig, segments):
+    for i, bd in enumerate(defs):
+        x, _ = _block_fwd(gpi[f"b{i}"], x, pos, bd, sc, "train",
+                          segments=segments)
+    return x
+
+
+def _aux_zeros(device):
+    """The MoE aux terms (no MoE block is ported: both are zero)."""
+    z = torch.zeros((), dtype=torch.float32, device=device)
+    return {"moe_load_balance": z, "moe_z_loss": z.clone()}
+
+
+def stack_fwd(params, x, pos, sc: StackConfig, mode: str = "train",
+              caches=None, index=None, codes=None, qdq_fn=None,
+              segments=None):
+    """Run the stack -> (x, caches, aux). Train mode returns no caches and
+    the zero MoE aux terms; prefill returns fresh stacked caches (layers,
+    B, S, ...); decode updates ``caches`` in place and returns them.
+    ``codes``/``qdq_fn`` (the in-loss precision emulation) must be None:
+    that belongs to ``reference_step``, not ported yet."""
+    refuse_qdq(codes, qdq_fn)
+    if mode == "train":
+        flags = attn_lib.dispatch_flags()
+        ctx = lambda: (contextlib.nullcontext(),           # noqa: E731
+                       attn_lib.dispatch_context(flags))
+        for si, (defs, n) in enumerate(sc.segments):
+            for gpi in _layers(params[f"seg{si}"], n):
+                if sc.remat:
+                    x = checkpoint(_train_layer, gpi, x, pos, defs, sc,
+                                   segments, use_reentrant=False,
+                                   context_fn=ctx, preserve_rng_state=False)
+                else:
+                    x = _train_layer(gpi, x, pos, defs, sc, segments)
+        return x, None, _aux_zeros(x.device)
     if mode not in ("prefill", "decode"):
-        raise NotImplementedError(
-            f"mode {mode!r}: the train mode comes with the LM training "
-            "slice of the port")
+        raise ValueError(f"unknown mode {mode!r}")
     new_caches = {}
     for si, (defs, n) in enumerate(sc.segments):
         gp = params[f"seg{si}"]
         per_layer = []
-        for li in range(n):
-            gpi = _layer(gp, li)
-            ci = _layer(caches[f"seg{si}"], li) if mode == "decode" else None
+        layer_caches = (_layers(caches[f"seg{si}"], n) if mode == "decode"
+                        else [None] * n)
+        for gpi, ci in zip(_layers(gp, n), layer_caches):
             cs = {}
             for i, bd in enumerate(defs):
                 x, cs[f"b{i}"] = _block_fwd(
@@ -172,4 +214,4 @@ def stack_fwd(params, x, pos, sc: StackConfig, mode: str = "prefill",
                 lambda *xs: torch.stack(xs), *per_layer)
         else:
             new_caches[f"seg{si}"] = caches[f"seg{si}"]
-    return x, new_caches
+    return x, new_caches, None

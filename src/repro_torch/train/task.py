@@ -7,8 +7,9 @@
     grouping(params) -> LayerGrouping
     data_stream(global_batch, seed) / eval_stream(global_batch, seed)
 
-``LMTask`` carries the serving hooks that ``repro_torch.serve`` drives
-(its training hooks come with the LM training slice):
+``LMTask`` carries the same training hooks (``loss_codes`` keeps the
+first ``num_layers`` codes: the grouping's embed/head pseudo-layers never
+reach the stack) and the serving hooks that ``repro_torch.serve`` drives:
 
     init_cache(batch, total_len)          empty decode caches for B slots
     prefill(params, batch)                -> (last-position logits, caches)
@@ -26,10 +27,12 @@ import torch.nn.functional as F
 
 from repro_torch import resolve_device
 from repro_torch import tree as tu
-from repro_torch.core.grouping import flat_grouping
-from repro_torch.data.synthetic import CIFARLikeStream
+from repro_torch.core.grouping import flat_grouping, lm_grouping
+from repro_torch.core.precision import refuse_qdq
+from repro_torch.data.synthetic import CIFARLikeStream, LMTaskStream
+from repro_torch.kernels import ops
 from repro_torch.models.lm import (LMConfig, lm_decode_step, lm_init,
-                                   lm_init_cache, lm_prefill)
+                                   lm_init_cache, lm_loss, lm_prefill)
 from repro_torch.models.vision import VisionConfig, vision_apply, vision_init
 
 
@@ -71,11 +74,7 @@ class VisionTask:
                            self.device if device is None else device)
 
     def loss(self, params, aux_state, batch, codes, qdq_fn):
-        if codes is not None or qdq_fn is not None:
-            raise NotImplementedError(
-                "in-loss QDQ precision emulation belongs to reference_step, "
-                "which is not ported yet (ROADMAP A6); the fused path casts "
-                "in the apply kernel")
+        refuse_qdq(codes, qdq_fn)
         logits, new_aux = vision_apply(params, aux_state, batch["images"],
                                        True, self.cfg)
         labels = batch["labels"].long()
@@ -121,15 +120,10 @@ class VisionTask:
         return self.loss(params, aux_state, batch, None, None)[0]
 
 
-_LM_TRAINING = ("LM training (loss, grouping, data stream, memory model) "
-                "comes with the LM training slice of the port")
-
-
 @dataclasses.dataclass
 class LMTask:
     """A decoder-only LM on ``device`` (``cuda`` unless the caller passes
-    ``device="cpu"``). The serving hooks are ported; the training hooks
-    raise ``NotImplementedError``."""
+    ``device="cpu"``): training and serving hooks."""
     cfg: LMConfig
     device: Any = "cuda"
     serves_tokens = True
@@ -154,16 +148,39 @@ class LMTask:
         return seq_len
 
     def loss(self, params, aux_state, batch, codes, qdq_fn):
-        raise NotImplementedError(_LM_TRAINING)
+        refuse_qdq(codes, qdq_fn)
+        total, metrics = lm_loss(params, batch, self.cfg)
+        return total, aux_state, {k: v.detach() for k, v in metrics.items()}
 
     def grouping(self, params):
-        raise NotImplementedError(_LM_TRAINING)
+        return lm_grouping(params, self.cfg.stack)
+
+    def loss_codes(self, codes: torch.Tensor) -> torch.Tensor:
+        return codes[: self.cfg.stack.num_layers]
 
     def data_stream(self, global_batch, seed=0, seq_len: int = 128):
-        raise NotImplementedError(_LM_TRAINING)
+        return LMTaskStream(self.cfg.vocab_size, seq_len, global_batch,
+                            seed=seed, device=self.device)
+
+    def eval_stream(self, global_batch, seed=0):
+        return self.data_stream(global_batch, seed)
 
     def memory_model(self, params, opt_slots: int, mesh_size: int = 1):
-        raise NotImplementedError(_LM_TRAINING)
+        from repro_torch.core.batch_scaler import MemoryModel
+        n = sum(int(x.numel()) for x in tu.leaves(params))
+        return MemoryModel.for_transformer(
+            n / mesh_size, self.cfg.d_model, self.cfg.num_layers,
+            opt_slots=opt_slots, remat=self.cfg.stack.remat)
+
+    def curvature_loss(self, params, aux_state, batch) -> torch.Tensor:
+        """Scalar loss for the §3.2 curvature probes (no loss scale), on
+        the chunked attention path as the reference pins it
+        (``flash_fallback``: its forward-mode probes cannot cross the
+        kernel's custom_vjp). The probe batches are b_curv-sized, so the
+        fallback costs little, and the probe launches no attention
+        kernel."""
+        with ops.flash_fallback():
+            return self.loss(params, aux_state, batch, None, None)[0]
 
     # --------------------------------------------------------- serving ----
     def init_cache(self, batch, total_len: int, dtype=torch.bfloat16,

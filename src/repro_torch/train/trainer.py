@@ -68,8 +68,9 @@ def set_f32_numerics(device: torch.device) -> None:
 
 
 class Trainer:
-    """The Tri-Accel engine for a ``VisionTask`` on ``device`` (``cuda``
-    unless the caller passes ``device="cpu"``; it must be the task's)."""
+    """The Tri-Accel engine for a task (``VisionTask`` or ``LMTask``) on
+    ``device`` (``cuda`` unless the caller passes ``device="cpu"``; it must
+    be the task's)."""
 
     def __init__(self, task, tac: TriAccelConfig, tcfg: TrainerConfig,
                  device="cuda", fault_plan=None):

@@ -6,9 +6,12 @@ machine with an H100 and the CUDA toolkit:
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda_kernels.py
 
 Tolerances as in ``chip_smoke.py``: qdq_cast bitwise (NaN equal to NaN);
-the attention kernels within ``flash_attention.tolerance`` (in f32 1e-5
-of the tensor's largest magnitude plus 1e-5 relative, in bf16 one bf16 ulp
-more). This file imports no JAX.
+the attention kernels, forward and backward, within
+``flash_attention.tolerance`` (in f32 1e-5 of the tensor's largest
+magnitude plus 1e-5 relative, in bf16 one bf16 ulp more); the
+differentiable ``ops.flash_attention`` within 1e-5 of each gradient's
+largest magnitude of autograd through the plain forward. This file imports
+no JAX.
 """
 import pytest
 
@@ -83,3 +86,52 @@ def test_flash_decode_kernel_matches_plain(card, dtype):
     got = fa.flash_decode_cuda(q, k, v, lens)
     assert _close(got, fa.flash_decode_ref(q, k, v, lens))
     assert bool((got[0] == 0).all())
+
+
+def _seg(card, B, S):
+    seg = (torch.arange(S, device=card) // 77).to(torch.int32)
+    return seg[None].expand(B, S).contiguous()
+
+
+@pytest.mark.parametrize("variant", ["causal", "noncausal", "window",
+                                     "segments", "dv"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_backward_kernels_match_plain(card, variant, dtype):
+    """delta, dQ and dK/dV against their plain versions on the same
+    residuals (the plain forward's o and lse)."""
+    g = torch.Generator(device=card).manual_seed(3)
+    B, S, H, K, D = 2, 256, 9, 3, 64
+    Dv = 32 if variant == "dv" else D
+    q, k, v, do = (torch.randn(s, generator=g, device=card).to(dtype)
+                   for s in ((B, S, H, D), (B, S, K, D), (B, S, K, Dv),
+                             (B, S, H, Dv)))
+    seg = _seg(card, B, S) if variant == "segments" else None
+    kw = dict(causal=variant != "noncausal",
+              window=100 if variant == "window" else 0)
+    o, lse = fa.flash_attention_ref(q, k, v, seg, with_lse=True, **kw)
+    delta = fa.flash_bwd_delta_ref(o, do)
+    assert _close(fa.flash_bwd_delta_cuda(o, do), delta)
+    assert _close(fa.flash_bwd_dq_cuda(q, k, v, do, lse, delta, seg, **kw),
+                  fa.flash_bwd_dq_ref(q, k, v, do, lse, delta, seg, **kw))
+    got = fa.flash_bwd_dkv_cuda(q, k, v, do, lse, delta, seg, **kw)
+    want = fa.flash_bwd_dkv_ref(q, k, v, do, lse, delta, seg, **kw)
+    assert all(_close(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.parametrize("variant", ["causal", "segments"])
+def test_flash_function_gradient_matches_plain_autograd(card, variant):
+    """``ops.flash_attention`` through the kernels (forward with LSE,
+    delta, dQ, dK/dV) against autograd through the plain forward, f32:
+    within 1e-5 of each gradient's largest magnitude."""
+    g = torch.Generator(device=card).manual_seed(4)
+    B, S, H, K, D = 2, 512, 9, 3, 64
+    q, k, v, do = (torch.randn(s, generator=g, device=card)
+                   for s in ((B, S, H, D), (B, S, K, D), (B, S, K, D),
+                             (B, S, H, D)))
+    seg = _seg(card, B, S) if variant == "segments" else None
+    ins = [x.requires_grad_(True) for x in (q, k, v)]
+    got = torch.autograd.grad(ops.flash_attention(*ins, segments=seg), ins,
+                              do)
+    want = torch.autograd.grad(fa.flash_attention_ref(*ins, seg), ins, do)
+    for a, b in zip(got, want):
+        assert float((a - b).abs().max()) <= 1e-5 * float(b.abs().max())
