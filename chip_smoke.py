@@ -30,12 +30,18 @@ Phases (any failure raises and the script exits non-zero):
          of ``scaled_dot_product_attention``; the differentiable
          ``ops.flash_attention`` against autograd through the plain
          forward;
+       - grad_stats over the reference's test shapes (f32, bf16), its
+         benchmark's (1024, 1024) and its registry's (1,000,000,) f32, an
+         empty tensor and tensors holding NaN, +inf, -inf; absmax bitwise,
+         sums within 2^-20 of the sum of |terms| of an f64 sum, two
+         launches bitwise equal; timed at (1024, 1024) f32;
   4. correctness of whole steps: one slab-resident train step of ResNet-18
      at batch 4, one prefill plus 4 teacher-forced decode steps of
      smollm-135m at full width and 2 layers, and one slab-resident LM
      train step of smollm-135m at full width and 2 layers (S 1024, B 2),
-     each on the card against the same on the CPU (plain versions), from
-     the same weights;
+     and one reference step (tree-form, unfused) of each of ResNet-18 at
+     batch 2 and smollm-135m at 2 layers, each on the card against the
+     same on the CPU (plain versions), from the same weights;
   5. the main paths, with the kernels' launch counts read around each:
        - ``run_method("triaccel", "resnet18", steps=50, batch0=32)``;
        - serving: ``ServeSession`` over smollm-135m at full width (30
@@ -51,13 +57,25 @@ Phases (any failure raises and the script exits non-zero):
          recompute) and 30 of each backward kernel a step;
   6. where the time goes: ``torch.profiler`` over a few ResNet-18 train
      steps, over a few decode steps at rung 4 and over one LM train step
-     at rung 8; the LM step time per rung.
+     at rung 8; the LM step time per rung;
+  7. the reference step's main paths, with the launch counts read around
+     each: ``run_method("fp32", "resnet18", steps=20, batch0=32)`` (no
+     fused-update launch, codes reported fp32, the rung fixed at 32) and
+     ``launch.train.main`` with ``--no-triaccel`` for smollm-135m at 30
+     layers, S 1024, rung 8, 10 steps (2 x 30 forward and 30 of each
+     backward kernel a step, no fused update); then grad_stats' path, its
+     public op over every leaf of each path's reference-step gradient
+     tree (f32, after the loss-scale division), counted around those calls
+     and held against the plain version, timed on the largest leaf
+     (smollm-135m's (49152, 576) embedding).
 
 A kernel that runs on two main paths at different shapes (fused_stats and
 fused_apply: ResNet-18 and LM training; flash_attention: serving and LM
-training) has a row for each in the ``kernels`` line, the LM training
-one named ``<kernel>@lm_train``: its launches on that path beside its
-time at that path's shape.
+training; grad_stats: ResNet-18's and smollm-135m's gradient trees) has a
+row for each in the ``kernels`` line, the second named
+``<kernel>@lm_train`` (``grad_stats@lm_reference``): its launches on that
+path beside its time at that path's shape. The reference paths make no
+grad_stats launch themselves, as in the reference.
 
 The last three lines are the ``kernels`` JSON line, the card's name and
 power limit, and ``{"ok": true, "device": {...}}``. Without a card (or
@@ -101,6 +119,8 @@ KERNELS = {
                                 "src/repro/kernels/flash_attention.py:441"),
     "flash_decode": (f"{CSRC}/flash_attention.cu",
                      "src/repro/kernels/flash_attention.py:546"),
+    "grad_stats": (f"{CSRC}/grad_stats.cu",
+                   "src/repro/kernels/grad_stats.py:52"),
 }
 # the LM training main path (phase 5c): launcher arguments and the rung
 # controller / fisher refresh periods, lowered from the launcher's 20 / 100
@@ -413,6 +433,161 @@ def check_apply_main(view, dev, bw, f32_ops, spec=None,
             "bound_ms": b_ms, "bound_by": by, "library_ms": None}
 
 
+# --------------------------------------------- phase 3d: grad_stats ---
+#: the reference's test shapes, then its benchmark's and its registry's
+GS_SHAPES = [(64,), (513, 129), (1024, 512), (7, 3, 5), (8,), (300,),
+             (1000,)]
+
+
+def _cls(t) -> str:
+    v = float(t)
+    return "nan" if math.isnan(v) else (str(v) if math.isinf(v)
+                                        else "finite")
+
+
+def _gs_check(got, x, what, again=None) -> float:
+    """One ``grad_stats`` result against the plain version on the same
+    tensor: absmax bitwise (NaN equal to NaN), each sum within 2^-20 of
+    the sum of its terms' magnitudes of an f64 sum (an f32 sum in another
+    order), non-finite statistics in the same class, and a second launch
+    bitwise equal (``again``). Returns max |kernel - plain|."""
+    from repro_torch.kernels import grad_stats as gs
+    want = gs.grad_stats_ref(x)
+    check(same(got[2], want[2]), f"grad_stats absmax {what}: {got[2]} vs "
+          f"{want[2]}")
+    v = x.detach().double().reshape(-1)
+    fin = bool(torch.isfinite(v).all())
+    for k, (truth, mass) in enumerate(((v.sum(), v.abs().sum()),
+                                       ((v * v).sum(), (v * v).sum()))):
+        g = got[k].double()
+        if fin:
+            check(float((g - truth).abs()) <= 2.0 ** -20 * float(mass),
+                  f"grad_stats {('sum', 'sum_sq')[k]} {what}: {float(g)!r} "
+                  f"vs f64 {float(truth)!r} (sum of |terms| "
+                  f"{float(mass)!r})")
+        else:
+            check(_cls(g) == _cls(want[k]),
+                  f"grad_stats {what}: {float(g)} vs {float(want[k])}")
+    if again is not None:
+        check(all(same(a, b) for a, b in zip(got, again)),
+              f"grad_stats {what}: two launches differ")
+    return max(abs_err(a, b) for a, b in zip(got, want))
+
+
+def _time_grad_stats(xs, bw, f32_ops, what):
+    """CUDA-event time of the kernel alone over the tensors ``xs`` in turn
+    (enough of them that each launch reads its input from device memory,
+    not from the 50 MB L2), the plain version's time, and the bound."""
+    from repro_torch.kernels import grad_stats as gs
+    lib = gs._lib()
+    x = xs[0]
+    code, n = gs._DTYPE_CODE[x.dtype], x.numel()
+    nblk = lib.tri_grad_stats_blocks(n, code)
+    part = torch.empty((3 * nblk,), device=x.device)
+    out = torch.empty((3,), device=x.device)
+    k = [0]
+
+    def raw():          # the kernel alone: no checks, no allocation
+        k[0] = (k[0] + 1) % len(xs)
+        lib.tri_grad_stats(xs[k[0]].data_ptr(), code, n, part.data_ptr(),
+                           nblk, out.data_ptr(),
+                           torch.cuda.current_stream().cuda_stream)
+
+    ms = time_ms(raw, iters=30)
+    plain_ms = time_ms(lambda: gs.grad_stats_ref(x), iters=10)
+    # each input byte read once, 3 f32 written; 4 operations an element
+    # (add, multiply-add, abs, max)
+    b_ms, by = bound(n * x.element_size() + 12, 4 * n, bw, f32_ops)
+    log(f"grad_stats {what} {tuple(x.shape)} {x.dtype}: kernel {ms:.5f} ms, "
+        f"plain {plain_ms:.5f} ms, bound {b_ms:.5f} ms ({by}), {nblk} "
+        "blocks; no single PyTorch call computes the three moments (no "
+        "library time)")
+    return ms, plain_ms, b_ms, by
+
+
+def check_grad_stats(dev, bw, f32_ops):
+    """``grad_stats`` against its plain version on the card: the
+    reference's test shapes (f32, bf16), its benchmark's (1024, 1024) f32
+    and its registry's (1,000,000,) f32, an empty tensor, tensors holding
+    NaN, +inf, -inf (and a strided view); timed at (1024, 1024) f32."""
+    from repro_torch.kernels import ops
+    gen = torch.Generator(device=dev).manual_seed(5)
+    err, n = 0.0, 0
+    cases = [(s, d) for s in GS_SHAPES
+             for d in (torch.float32, torch.bfloat16)]
+    cases += [((1024, 1024), torch.float32), ((1_000_000,), torch.float32)]
+    for shape, dtype in cases:
+        x = (torch.randn(shape, generator=gen, device=dev) * 2).to(dtype)
+        err = max(err, _gs_check(ops.grad_stats(x), x, f"{shape} {dtype}",
+                                 ops.grad_stats(x)))
+        n += 1
+    empty = ops.grad_stats(torch.empty((0,), device=dev))
+    check([float(t) for t in empty] == [0.0] * 3, "grad_stats of nothing")
+    for bad in (float("nan"), float("inf"), -float("inf")):
+        x = torch.randn((513, 129), generator=gen, device=dev)
+        x[7, 100] = bad
+        _gs_check(ops.grad_stats(x), x, f"holding {bad}")
+        _gs_check(ops.grad_stats(x.T), x.T, f"holding {bad}, transposed")
+    both = torch.randn((513, 129), generator=gen, device=dev)
+    both[1, 1], both[2, 2] = float("inf"), -float("inf")
+    got = ops.grad_stats(both)
+    _gs_check(got, both, "holding +inf and -inf")
+    check(bool(torch.isnan(got[0])) and float(got[2]) == float("inf"),
+          "grad_stats: inf - inf sums to NaN, absmax inf")
+    torch.cuda.synchronize()
+    log(f"grad_stats: {n} shapes x 2 launches, empty, NaN/+inf/-inf and "
+        f"strided inputs held against the plain version; max|kernel - "
+        f"plain| {err:.3g}")
+    # 16 x 4 MB: each timed launch finds its input out of the L2
+    xs = [torch.randn((1024, 1024), generator=gen, device=dev)
+          for _ in range(16)]
+    ms, plain_ms, b_ms, by = _time_grad_stats(xs, bw, f32_ops,
+                                              "(the reference benchmark's)")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": by, "library_ms": None}
+
+
+def grad_stats_over_gradients(name, task, params, aux, batch, tac,
+                              control, bw=None, f32_ops=None):
+    """The port's path to ``grad_stats``: its public op over every leaf of
+    the gradient tree of one reference step (``train_step.reference_grads``:
+    the main path's loss and batch, f32 after the loss-scale division).
+    The launch count is read around the op's calls alone; the results are
+    then held against the plain version (no kernel launch)."""
+    from repro_torch import tree as tu
+    from repro_torch.core.precision import make_qdq_fn
+    from repro_torch.kernels import ops
+    from repro_torch.train.train_step import reference_grads
+    grads, _, metrics = reference_grads(task, make_qdq_fn(tac), params, aux,
+                                        batch, task.loss_codes(control.codes),
+                                        control.loss_scale)
+    leaves = tu.leaves(grads)
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    stats = [ops.grad_stats(g) for g in leaves]
+    torch.cuda.synchronize()
+    launches = dict(ops.LAUNCHES)
+    check(launches["grad_stats"] == len(leaves) and sum(
+        launches.values()) == len(leaves),
+        f"grad_stats over {name}'s gradient leaves: {launches}")
+    err = max(_gs_check(st, g, f"{name} leaf {tuple(g.shape)}")
+              for st, g in zip(stats, leaves))
+    big = max(leaves, key=lambda g: g.numel())
+    log(f"grad_stats over the {len(leaves)} gradient leaves of one "
+        f"reference step of {name} ({sum(g.numel() for g in leaves)} "
+        f"elements, largest {tuple(big.shape)} {big.dtype}): "
+        f"{launches['grad_stats']} launches, all held against the plain "
+        f"version, max|kernel - plain| {err:.3g}; that step's loss "
+        f"{float(metrics['loss']):.5f}")
+    out = {"launches": launches["grad_stats"], "max_abs_err": err}
+    if bw is not None:          # time the largest leaf (113 MB: out of L2)
+        ms, plain_ms, b_ms, by = _time_grad_stats(
+            [big], bw, f32_ops, f"{name}'s largest gradient leaf")
+        out.update(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=by,
+                   library_ms=None)
+    return out
+
+
 # ------------------------------------------ phase 4: one step, two devices ---
 def check_step_against_cpu():
     """One resident step of ResNet-18 at batch 4 on the card (kernels) and
@@ -561,11 +736,12 @@ def _profile(run, steps: int, family, what: str) -> None:
         log(f"    {v / steps / 1e3:8.4f} ms  {n[:100]}")
 
 
-def profile_steps(batch0: int, warm: int = 6, steps: int = 5) -> None:
-    """Where a train step's time goes: ``steps`` steps of the main path's
-    trainer after ``warm`` steps."""
+def profile_steps(batch0: int, warm: int = 6, steps: int = 5,
+                  method: str = "triaccel") -> None:
+    """Where a train step's time goes: ``steps`` steps of the ``method``
+    main path's trainer after ``warm`` steps."""
     from repro_torch.train.paper_harness import make_trainer
-    trainer = make_trainer("triaccel", "resnet18", steps=50, batch0=batch0,
+    trainer = make_trainer(method, "resnet18", steps=50, batch0=batch0,
                            device="cuda")[0]
     trainer.run(warm)
 
@@ -581,7 +757,8 @@ def profile_steps(batch0: int, warm: int = 6, steps: int = 5) -> None:
         return "reduction" if "reduce" in n else "elementwise / other"
 
     _profile(lambda: trainer.run(steps), steps, family,
-             f"{steps} train steps at rung {trainer.scaler.microbatch}")
+             f"{steps} {method} train steps at rung "
+             f"{trainer.scaler.microbatch}")
 
 
 # ------------------------------------ phase 3b: the serving kernels ---
@@ -1319,6 +1496,210 @@ def profile_lm_step(tr) -> None:
              f"1 LM train step at rung {tr.scaler.microbatch}")
 
 
+# ------------------------ phase 5d: the reference training main paths ---
+#: the paper's FP32 baseline through the harness, and the static-AMP
+#: baseline through the launcher (smollm-135m at 30 layers, S 1024, rung 8)
+FP32_ARGS = dict(steps=20, batch0=32)
+NO_TRIACCEL_ARGS = ["--arch", "smollm-135m", "--seq", "1024", "--rungs", "8",
+                    "--steps", "10", "--ladder", "gpu", "--no-triaccel"]
+
+
+def _step_ms(tr, steps: int = 5) -> float:
+    """Median host time of ``steps`` more train steps of ``tr``, each
+    ending in a device sync."""
+    times = []
+    for _ in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tr.run(1)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def fp32_main_path():
+    """``run_method("fp32", "resnet18", steps=20, batch0=32)``: the
+    reference step over tree-form state, no fused-update launch, codes
+    reported as fp32, the rung fixed at 32. Then the port's path to
+    ``grad_stats``: its op over the gradient tree of the same trainer's
+    first step (``make_trainer`` builds the trainer ``run_method`` runs)."""
+    from repro_torch.kernels import ops
+    from repro_torch.train.paper_harness import make_trainer, run_method
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    res = run_method("fp32", "resnet18", device="cuda", **FP32_ARGS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    steps, batch0 = FP32_ARGS["steps"], FP32_ARGS["batch0"]
+    losses = [m["loss"] for m in res.log]
+    check(len(res.log) == steps and all(
+        math.isfinite(x) and m["grads_finite"] == 1.0
+        for x, m in zip(losses, res.log)), f"fp32 losses {losses}")
+    check(sum(launches.values()) == 0, f"fp32 launches {launches}")
+    check(res.codes == [2] * len(res.codes), f"fp32 codes {res.codes}")
+    check(res.final_batch == batch0 and res.batch_history == []
+          and all(m["rung"] == batch0 for m in res.log), "rung fixed")
+    walls = [m["wall_s"] for m in res.log]
+    step_ms = statistics.median(b - a for a, b in zip(walls[4:], walls[5:]))
+    log(f"FP32 main path: run_method('fp32', 'resnet18', steps={steps}, "
+        f"batch0={batch0}) in {wall:.2f} s (eval included): median step "
+        f"{step_ms * 1e3:.3f} ms (steps 5..{steps - 1}), peak allocated "
+        f"{peak / 1e9:.3f} GB, loss {losses[0]:.4f} -> {losses[-1]:.4f}, "
+        f"held-out accuracy {res.accuracy:.2f} %, rung {res.final_batch}, "
+        f"codes {res.codes}, launches {launches}")
+    tr = make_trainer("fp32", "resnet18", device="cuda", **FP32_ARGS)[0]
+    st = tr.state
+    return grad_stats_over_gradients(
+        "ResNet-18", tr.task, st.params, st.aux_state,
+        tr._batch_for_rung(batch0, 0), tr.tac, st.control)
+
+
+def no_triaccel_main_path(bw, f32_ops):
+    """``launch.train.main(NO_TRIACCEL_ARGS)``: smollm-135m at 30 layers
+    and published widths, S 1024, rung 8, the static bf16 baseline on the
+    reference step. Launches: the forward kernel 2 x 30 a step (forward
+    and remat recompute), each backward kernel 30 a step, no fused update.
+    Then the step time, and the port's path to ``grad_stats`` over the
+    gradient tree of the trainer's next step (its loss and batch), timed
+    on the largest leaf."""
+    import contextlib
+    import io
+    import warnings
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as launch_train
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    ops.WARNED_FALLBACKS.clear()
+    printed = io.StringIO()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(printed):
+            tr = launch_train.main(NO_TRIACCEL_ARGS)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    steps = int(NO_TRIACCEL_ARGS[NO_TRIACCEL_ARGS.index("--steps") + 1])
+    rung = int(NO_TRIACCEL_ARGS[NO_TRIACCEL_ARGS.index("--rungs") + 1])
+    L = tr.task.cfg.num_layers
+    fallbacks = [str(w.message) for w in caught
+                 if "kernel gate failed" in str(w.message)]
+    check(not fallbacks and not ops.WARNED_FALLBACKS,
+          f"fallback warnings on the --no-triaccel path: {fallbacks}")
+    check(not tr.fused and tr.state.compute == () and not tr.oom_events,
+          "the reference step, no OOM")
+    check(int(tr.state.control.step) == steps, "all steps taken")
+    lines = [json.loads(x) for x in printed.getvalue().splitlines()]
+    check(len(lines) == len(tr.metrics_log) == -(-steps // 10) and all(
+        math.isfinite(m["loss"]) and m["grads_finite"] == 1.0
+        for m in tr.metrics_log), f"logged {lines}")
+    want = {"flash_attention": 2 * L * steps,
+            "flash_attention_bwd_delta": L * steps,
+            "flash_attention_bwd_dq": L * steps,
+            "flash_attention_bwd_dkv": L * steps}
+    check({k: v for k, v in launches.items() if v} == want,
+          f"--no-triaccel launches {launches}, expected {want}")
+    check(tr.scaler.microbatch == rung and tr.scaler.history == [],
+          f"rung fixed at {rung}")
+    log(f"--no-triaccel main path: launch.train.main("
+        f"{' '.join(NO_TRIACCEL_ARGS)}): {steps} steps in {wall:.2f} s "
+        f"(init included), {L} layers, peak allocated {peak / 1e9:.3f} GB, "
+        f"loss {[round(m['loss'], 4) for m in lines]} at steps "
+        f"{[m['step'] for m in lines]}, codes "
+        f"{tr.state.control.codes.tolist()}, launches {launches}")
+    torch.cuda.reset_peak_memory_stats()
+    ms = _step_ms(tr)
+    log(f"  step time at rung {rung} (median of 5 more steps) {ms:.3f} "
+        f"ms, peak allocated over them "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB")
+    profile_lm_step(tr)
+    st = tr.state
+    out = grad_stats_over_gradients(
+        "smollm-135m", tr.task, st.params, st.aux_state,
+        tr._batch_for_rung(rung, int(st.control.step)), tr.tac, st.control,
+        bw, f32_ops)
+    return launches, out
+
+
+def check_reference_steps_against_cpu():
+    """One reference step on the card and on the CPU from the same weights,
+    state and batch: ResNet-18 at batch 2 (the FP32 baseline's
+    configuration) and smollm-135m at full width and 2 layers, S 1024, B 2
+    (the --no-triaccel configuration). Bounds as the resident steps'
+    (``check_step_against_cpu``, ``check_lm_step_against_cpu``): the
+    momentum (the clipped gradient) leaf by leaf within 3e-2 (ResNet-18)
+    and 5e-2 (the bf16 LM) of the leaf's largest magnitude; the master
+    p_card - p_cpu = -lr (m_card - m_cpu) up to one f32 rounding on each
+    side, 2^-21 (|p| + |p'_card| + |p'_cpu|); loss within rtol 1e-4
+    (ResNet-18) and 1e-3 (LM); BN statistics within rtol 1e-4; codes
+    equal."""
+    from repro_torch import tree as tu
+    from repro_torch.core.precision import TriAccelConfig
+    from repro_torch.data.synthetic import CIFARLikeStream, LMTaskStream
+    from repro_torch.models.vision import VisionConfig
+    from repro_torch.train.paper_harness import _tac_for
+    from repro_torch.train.task import LMTask, VisionTask
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+    cases = [
+        ("ResNet-18", lambda dev: VisionTask(VisionConfig("resnet18"),
+                                             device=dev),
+         _tac_for("fp32", mem_cap_gb=1.0),
+         TrainerConfig(total_steps=10, base_lr=0.05, warmup_steps=2,
+                       weight_decay=5e-4, grad_clip=5.0, rungs=(2,),
+                       seq_len=1),
+         CIFARLikeStream(global_batch=2, seed=3).batch(0), 1e-4, 3e-2),
+        ("smollm-135m x2 layers", lambda dev: LMTask(_lm_cfg(2), device=dev),
+         TriAccelConfig(ladder="gpu", curvature_method="fisher",
+                        enable_precision=False, enable_curvature=False,
+                        enable_batch=False, dynamic_precision=False),
+         TrainerConfig(total_steps=10, base_lr=0.05, warmup_steps=2,
+                       grad_clip=1.0, rungs=(2,), seq_len=1024),
+         LMTaskStream(49152, 1024, 2, seed=3).batch(0), 1e-3, 5e-2),
+    ]
+    cpu = lambda t: t.detach().cpu().float()     # noqa: E731
+    for name, make, tac, tcfg, batch, loss_rtol, mom_rel in cases:
+        out = {}
+        for dev in ("cpu", "cuda"):
+            tr = Trainer(make(dev), tac, tcfg, device=dev)
+            check(not tr.fused, f"{name}: the reference step")
+            b = {k: v.to(dev) for k, v in batch.items()}
+            st, met = tr._step_fn(tr.state, b)
+            out[dev] = (tu.leaves(tr.state.params), st, met)
+        (p0, sc, mc), (_, sg, mg) = out["cpu"], out["cuda"]
+        check(bool(mg["grads_finite"]) and bool(torch.isfinite(mg["loss"])),
+              f"{name}: finite step on the card")
+        torch.testing.assert_close(cpu(mg["loss"]), mc["loss"],
+                                   rtol=loss_rtol, atol=0)
+        lr = float(mc["lr"])
+        check(float(mg["lr"]) == lr, f"{name}: learning rate")
+        worst = 0.0
+        for a0, pg, pc, mg_, mc_ in zip(
+                p0, tu.leaves(sg.params), tu.leaves(sc.params),
+                tu.leaves(sg.opt_state["mu"]), tu.leaves(sc.opt_state["mu"])):
+            pg, mg_ = cpu(pg), cpu(mg_)
+            gap = float((mg_ - mc_).abs().max()) / float(mc_.abs().max())
+            worst = max(worst, gap)
+            dev_p = ((pg - pc) + lr * (mg_ - mc_)).abs()
+            check(bool((dev_p <= 2.0 ** -21 * (a0.abs() + pc.abs()
+                                               + pg.abs())).all()),
+                  f"{name}: master = p - lr * m on both devices")
+        check(worst <= mom_rel, f"{name}: card vs CPU momentum {worst}")
+        check(torch.equal(sg.control.codes.cpu(), sc.control.codes),
+              f"{name}: codes")
+        for a, b in zip(tu.leaves(sg.aux_state), tu.leaves(sc.aux_state)):
+            torch.testing.assert_close(cpu(a), b, rtol=1e-4, atol=1e-5)
+        log(f"{name}, one reference step, card vs CPU: loss "
+            f"{float(mg['loss']):.7f} vs {float(mc['loss']):.7f}; momentum "
+            f"(the clipped gradient) within {worst:.3g} of each leaf's max "
+            f"(limit {mom_rel})")
+
+
 # ------------------------------------ phase 5b: the serving main path ---
 def serve_main_path(seed: int = 0):
     """The serving main path: ServeSession over smollm-135m at full width,
@@ -1503,6 +1884,7 @@ def main() -> int:
     res["flash_decode"] = check_decode(dev, bw, tc_ops)
     res.update(check_flash_bwd(dev, bw, tc_ops))
     check_flash_function(dev)
+    res["grad_stats"] = check_grad_stats(dev, bw, f32_ops)
     log(f"kernel checks in {time.perf_counter() - t_phase:.1f} s")
     if args.kernels_only:
         return 0
@@ -1511,6 +1893,7 @@ def main() -> int:
     check_step_against_cpu()
     check_lm_against_cpu()
     check_lm_step_against_cpu()
+    check_reference_steps_against_cpu()
     log(f"card-vs-CPU checks in {time.perf_counter() - t_phase:.1f} s")
     t_phase = time.perf_counter()
     launches = main_path(args.steps, args.batch0)
@@ -1536,6 +1919,24 @@ def main() -> int:
     log(f"LM training main path in {time.perf_counter() - t_phase:.1f} s")
     time_lm_rungs(lm_tr)
     profile_lm_step(lm_tr)
+    del lm_tr                 # the reference paths' peaks are their own
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the reference step's main paths, each with its counts read around it;
+    # grad_stats' path is its op over each path's gradient tree
+    t_phase = time.perf_counter()
+    gs_resnet = fp32_main_path()
+    profile_steps(FP32_ARGS["batch0"], method="fp32")
+    gc.collect()
+    torch.cuda.empty_cache()
+    _, gs_lm = no_triaccel_main_path(bw, f32_ops)
+    launches["grad_stats"] = gs_resnet["launches"]
+    res["grad_stats"]["max_abs_err"] = max(res["grad_stats"]["max_abs_err"],
+                                           gs_resnet["max_abs_err"])
+    launches["grad_stats@lm_reference"] = gs_lm.pop("launches")
+    res["grad_stats@lm_reference"] = gs_lm
+    log(f"reference main paths in {time.perf_counter() - t_phase:.1f} s")
 
     rows = [{"name": rname, "route": "cuda", "source": src,
              "replaces": replaces, "launches": launches[rname],

@@ -1,34 +1,32 @@
-"""Tri-Accel §3.1 — Precision-Adaptive Updates (control math).
+"""Tri-Accel §3.1 — Precision-Adaptive Updates.
 
 Per-layer precision codes (0 = low tier, 1 = bf16, 2 = fp32) are selected
 from an EMA of per-layer gradient variance against thresholds (tau_low,
 tau_high), with §3.2's curvature promotion overriding to fp32 above
 tau_curv. On the fused path the codes are actuated by the apply kernel's
-next-step cast (``kernels.fused_update``).
+next-step cast (``kernels.fused_update``); on the reference path
+(``train_step.reference_step``) by the in-loss quantize-dequantize
+``qdq``: weights are rounded to the tier's grid while their dtype stays,
+the tier picked on the device from a code tensor, with no host read.
 
 Ladders:
     gpu: fp16 / bf16 / fp32   (paper-faithful)
-    tpu: fp8_e4m3 (per-layer amax scaling) / bf16 / fp32
+    tpu: fp8_e4m3 (per-tensor amax scaling) / bf16 / fp32
 """
 from __future__ import annotations
 
 import dataclasses
+from functools import partial
+from typing import Callable, Optional
 
 import torch
+
+from repro_torch import tree as tu
+from repro_torch.kernels.fused_update import _fp8_round, cast_scales
 
 LADDERS = {"gpu": ("fp16", "bf16", "fp32"), "tpu": ("fp8", "bf16", "fp32")}
 
 FP8_MAX = 448.0  # float8_e4m3fn max normal
-
-
-def refuse_qdq(codes, qdq_fn) -> None:
-    """The resident fused path passes no in-loss precision emulation: the
-    apply kernel casts. Anything else belongs to ``reference_step``."""
-    if codes is not None or qdq_fn is not None:
-        raise NotImplementedError(
-            "in-loss QDQ precision emulation belongs to reference_step, "
-            "which is not ported yet (ROADMAP A6); the fused path casts in "
-            "the apply kernel")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -83,3 +81,124 @@ def codes_from_stats(var_ema: torch.Tensor, lam: torch.Tensor,
     if not cfg.enable_precision:
         codes = torch.ones_like(codes)  # static bf16 (AMP)
     return codes
+
+
+# ------------------------------------------------------------------ QDQ ----
+def _qdq_fp16(x: torch.Tensor) -> torch.Tensor:
+    return x.to(torch.float16).to(x.dtype)
+
+
+def _qdq_bf16(x: torch.Tensor) -> torch.Tensor:
+    return x.to(torch.bfloat16).to(x.dtype)
+
+
+def _qdq_fp8(x: torch.Tensor) -> torch.Tensor:
+    """Per-tensor amax-scaled e4m3 rounding (the tpu ladder's low tier),
+    with the reference's NaN past 464 (``fused_update._fp8_round``)."""
+    xf = x.float()
+    scale = cast_scales(xf.abs().amax())
+    return (_fp8_round(xf * scale) / scale).to(x.dtype)
+
+
+def _qdq_fp8_vjp(x: torch.Tensor, ct: torch.Tensor) -> torch.Tensor:
+    """The reference's transpose of ``_qdq_fp8`` (``jax.vjp``), operation
+    by operation: the cotangent rounds through e4m3 as the forward cast
+    transposes (``ct / scale`` to fp8 and back, times ``scale``), plus the
+    path through amax -> scale, a full-tensor sum that lands on the absmax
+    element(s), shared equally among ties as ``jnp.max``'s rule does. A bf16
+    ``x`` gets each path's cotangent cast to bf16 before they add, as the
+    reference's two f32 converts of ``x`` do."""
+    xf = x.float()
+    ax = xf.abs()
+    amax = ax.amax()
+    hit = (ax == amax).float()
+    pos = amax > 0
+    scale = cast_scales(amax)
+    c = ct.float()
+    y = _fp8_round(xf * scale)                    # the forward's grid values
+    c8 = _fp8_round(c / scale)                    # cotangent of the cast
+    d_scale = (-((c * (1.0 / (scale * scale))) * y).sum()
+               + (xf * c8).sum())
+    main = c8 * scale
+    d_amax = -((torch.where(pos, d_scale, 0.0) * (1.0 / (amax * amax)))
+               * FP8_MAX) / hit.sum()
+    at_max = d_amax * hit
+    zero = torch.zeros_like(at_max)
+    up = torch.where(xf >= 0, at_max, zero)       # through |x| = x
+    down = -torch.where(xf >= 0, zero, at_max)    # through |x| = -x
+    if x.dtype == torch.float32:
+        return (main + up) + down
+    return main.to(x.dtype) + (up + down).to(x.dtype)
+
+
+def _mid(x: torch.Tensor) -> torch.Tensor:
+    return x if x.dtype == torch.bfloat16 else _qdq_bf16(x)
+
+
+def _pick(code, low, mid, keep):
+    return torch.where(code == 0, low, torch.where(code == 1, mid, keep))
+
+
+class _Qdq(torch.autograd.Function):
+    """The tier switch on a device code: every tier is computed and
+    ``torch.where`` picks one, forward and backward, so the gradient is
+    the picked tier's transpose alone (the reference's ``lax.switch``) and
+    no host read is needed. Each cast's transpose casts the cotangent the
+    same way (JAX's ``convert_element_type`` rule); the fp8 tier's is
+    ``_qdq_fp8_vjp``."""
+
+    @staticmethod
+    def forward(ctx, x, code, ladder):
+        code = code.clamp(0, 2)
+        ctx.save_for_backward(x, code)
+        ctx.ladder = ladder
+        low = _qdq_fp8(x) if ladder == "tpu" else _qdq_fp16(x)
+        return _pick(code, low, _mid(x), x)
+
+    @staticmethod
+    def backward(ctx, ct):
+        x, code = ctx.saved_tensors
+        low = (_qdq_fp8_vjp(x, ct) if ctx.ladder == "tpu"
+               else _qdq_fp16(ct))
+        return _pick(code, low, _mid(ct), ct), None, None
+
+
+def qdq(x: torch.Tensor, code, ladder: str = "gpu") -> torch.Tensor:
+    """Round ``x`` to the grid of the precision tier ``code`` selects (a
+    0-d integer tensor, on the device; clamped to 0..2 as ``lax.switch``
+    does). Gradients pass through the picked tier's casts."""
+    if not x.dtype.is_floating_point:
+        return x
+    if ladder not in LADDERS:
+        raise ValueError(f"unknown ladder {ladder!r}")
+    code = torch.as_tensor(code, dtype=torch.int32, device=x.device)
+    return _Qdq.apply(x, code, ladder)
+
+
+def make_qdq_fn(cfg: TriAccelConfig) -> Optional[Callable]:
+    """QDQ is applied whenever dynamic_precision is on; enable_precision
+    only gates whether the codes ADAPT (False freezes them at the bf16
+    tier = the paper's static-AMP baseline)."""
+    if not cfg.dynamic_precision:
+        return None
+    return partial(qdq, ladder=cfg.ladder)
+
+
+# -------------------------------------------------- variance statistics ----
+def moment_stats(tree, layer_axis: bool = False):
+    """(sum, sumsq, count) over a layer's floating gradient leaves, in f32.
+    With ``layer_axis`` the leaves carry a leading stacked-layer dim that is
+    kept: per-layer (n,) vectors."""
+    leaves = [l.float() for l in tu.leaves(tree)
+              if l.dtype.is_floating_point]
+    if layer_axis:
+        rows = [l.reshape(l.shape[0], -1) for l in leaves]
+        s = sum(r.sum(dim=1) for r in rows)
+        ss = sum((r * r).sum(dim=1) for r in rows)
+        cnt = sum(float(l.numel()) / l.shape[0] for l in leaves)
+        return s, ss, torch.full_like(s, cnt)
+    s = sum(l.sum() for l in leaves)
+    ss = sum((l * l).sum() for l in leaves)
+    cnt = torch.tensor(float(sum(l.numel() for l in leaves)),
+                       dtype=torch.float32, device=s.device)
+    return s, ss, cnt

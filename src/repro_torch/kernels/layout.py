@@ -1,4 +1,6 @@
-"""The ``SlabView`` layout layer the fused update phase sweeps over.
+"""The ``SlabView`` layout layer the fused update phase sweeps over, and
+the reference's tile folding for the reduction kernels (``fold2d``,
+``small_blocks``).
 
 Every floating leaf of a ``LayerGrouping``-shaped tree is assigned a
 contiguous row range of ONE (rows, SLAB_N) slab, with stacked segment
@@ -6,6 +8,11 @@ leaves (leading layer axis) split so each layer's elements start on a row
 boundary. The index metadata — row offsets and a per-row int32 layer-id
 vector — is built once (numpy) and cached, so the per-step work is views
 and per-row gathers of tiny (L,) tables.
+
+``fold2d``/``small_blocks`` are the reference's (rows, cols) tiling of
+any-shaped tensors for its TPU reductions, kept here as plain functions
+equal to the reference for every size; the CUDA ``grad_stats`` kernel
+reads the flat tensor with a bounds-checked tail and needs neither.
 
 Leaf order is the sorted-key order of ``repro_torch.tree`` (equal to
 ``jax.tree_util`` order), so a tree packs into the same rows as in the
@@ -23,6 +30,33 @@ from repro_torch import tree as tu
 
 SLAB_M = 256    # tile rows of the fused-update sweep (row-metadata blocks)
 SLAB_N = 512    # slab width (lanes)
+
+
+def fold2d(x: torch.Tensor, block_m: int, cols: int,
+           min_rows: int = 0) -> torch.Tensor:
+    """Flatten ``x`` to (rows, cols) with rows a multiple of ``block_m``
+    (and >= ``min_rows``), zero-padding the tail only when needed."""
+    n = x.numel()
+    rows = -(-n // cols)
+    pad_rows = max(-(-rows // block_m) * block_m, min_rows)
+    if n == pad_rows * cols:
+        return x.reshape(pad_rows, cols)        # aligned: no pad copy
+    out = torch.zeros((pad_rows * cols,), dtype=x.dtype, device=x.device)
+    out[:n] = x.reshape(-1)
+    return out.reshape(pad_rows, cols)
+
+
+def small_blocks(n: int, block_m: int = SLAB_M,
+                 block_n: int = SLAB_N) -> Tuple[int, int]:
+    """(rows, cols) tile for an ``n``-element reduction: full tiles for
+    tensors that fill one, a single small tile otherwise (16-row multiple,
+    at least 16 rows)."""
+    if n >= block_m * block_n:
+        return block_m, block_n
+    cols = block_n if n >= 8 * block_n else 128
+    rows = -(-n // cols)
+    rows = -(-rows // 16) * 16
+    return min(block_m, max(rows, 16)), cols
 
 
 @dataclasses.dataclass(frozen=True)

@@ -30,11 +30,13 @@ import torch
 
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import fused_update as _fu
+from repro_torch.kernels import grad_stats as _gs
 from repro_torch.kernels import qdq_cast as _qc
 
 #: kernel name -> launches since the last ``reset_launches()``
 LAUNCHES = {"fused_stats": 0, "fused_apply": 0, "qdq_cast": 0,
-            "flash_attention": 0, "flash_attention_bwd_delta": 0,
+            "grad_stats": 0, "flash_attention": 0,
+            "flash_attention_bwd_delta": 0,
             "flash_attention_bwd_dq": 0, "flash_attention_bwd_dkv": 0,
             "flash_decode": 0}
 #: fallback reasons already warned about (one warning per reason)
@@ -81,6 +83,16 @@ def qdq_cast(x, code, ladder: str = "tpu", amax=None):
         return _qc.qdq_cast_ref(x, code, ladder, amax)
     out = _qc.qdq_cast_cuda(x, code, ladder, amax)
     LAUNCHES["qdq_cast"] += 1
+    return out
+
+
+def grad_stats(x):
+    """(sum, sum_sq, absmax) of all elements of ``x`` (any shape, f32, bf16
+    or f16) as three 0-d f32 tensors, accumulated in f32."""
+    if x.device.type == "cpu":
+        return _gs.grad_stats_ref(x)
+    out = _gs.grad_stats_cuda(x)
+    LAUNCHES["grad_stats"] += 1
     return out
 
 

@@ -8,13 +8,15 @@ Tri-Accel settings (fisher curvature, ``t_ctrl`` 20, ``t_curv`` 100,
 ``b_curv`` 2) on one device (``--device``, cuda unless told otherwise),
 runs ``--steps`` steps and prints the logged metrics as JSON lines.
 
+``--no-triaccel`` turns precision, curvature, batch rungs and dynamic
+precision off: the static baseline in the model's compute dtype (bf16 for
+the LMs), trained by ``reference_step``.
+
 Not ported yet, and raising ``NotImplementedError``: ``--ckpt``
-(checkpointing, ROADMAP A7), ``--distributed`` (``jax.distributed`` has
-no counterpart: the port runs on one device, ROADMAP A12) and
-``--no-triaccel`` (the static bf16 baseline needs ``reference_step``,
-ROADMAP A6). The reference's AOT rung warm-up (``warm_rungs``) and its
-preemption handler are left out: PyTorch runs eagerly, and preemption
-needs checkpointing.
+(checkpointing, ROADMAP A7) and ``--distributed`` (``jax.distributed`` has
+no counterpart: the port runs on one device, ROADMAP A12). The
+reference's AOT rung warm-up (``warm_rungs``) and its preemption handler
+are left out: PyTorch runs eagerly, and preemption needs checkpointing.
 """
 from __future__ import annotations
 
@@ -58,11 +60,6 @@ def main(argv=None, **tac_overrides):
     if args.ckpt is not None:
         raise NotImplementedError(
             "--ckpt: checkpointing is not ported yet (ROADMAP A7)")
-    if args.no_triaccel:
-        raise NotImplementedError(
-            "--no-triaccel: the static bf16 baseline needs reference_step, "
-            "which is not ported yet (ROADMAP A6)")
-
     from repro_torch.core.precision import TriAccelConfig
     from repro_torch.models.registry import get_task
     from repro_torch.train.trainer import Trainer, TrainerConfig
@@ -71,9 +68,11 @@ def main(argv=None, **tac_overrides):
     tac = TriAccelConfig(**{
         **dict(ladder=args.ladder, t_ctrl=20, t_curv=100, b_curv=2,
                curvature_method="fisher",
-               mem_cap_bytes=args.mem_cap_gb * 1e9, enable_precision=True,
-               enable_curvature=True, enable_batch=True,
-               dynamic_precision=True),
+               mem_cap_bytes=args.mem_cap_gb * 1e9,
+               enable_precision=not args.no_triaccel,
+               enable_curvature=not args.no_triaccel,
+               enable_batch=not args.no_triaccel,
+               dynamic_precision=not args.no_triaccel),
         **tac_overrides})
     rungs = tuple(int(r) for r in args.rungs.split(","))
     tcfg = TrainerConfig(total_steps=args.steps, base_lr=args.lr,

@@ -9,7 +9,9 @@ walks that axis with a Python loop. Caches are stacked the same way,
 Ported so far: ``gqa`` mixing with the dense gated FFN, in the ``train``,
 ``prefill`` and ``decode`` modes. In train mode each layer runs under
 ``torch.utils.checkpoint`` when ``remat`` (the reference's
-``jax.checkpoint``), so backward recomputes it. MLA, SSM, RG-LRU, MoE and
+``jax.checkpoint``), so backward recomputes it; the in-loss precision
+emulation (``codes``/``qdq_fn`` of ``reference_step``) rounds each layer's
+weights inside that checkpoint. MLA, SSM, RG-LRU, MoE and
 cross-attention blocks wait for their slices.
 """
 from __future__ import annotations
@@ -22,7 +24,6 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch import tree as tu
-from repro_torch.core.precision import refuse_qdq
 from repro_torch.nn import attention as attn_lib
 from repro_torch.nn.attention import AttnConfig
 from repro_torch.nn.layers import (activation, dense, dense_init, rmsnorm,
@@ -158,7 +159,19 @@ def _layers(tree, n: int):
     return [tu.unflatten(treedef, [c[i] for c in cols]) for i in range(n)]
 
 
-def _train_layer(gpi, x, pos, defs, sc: StackConfig, segments):
+def _apply_qdq(gp, codes, qdq_fn, defs):
+    """One stacked layer's weights through ``qdq_fn``, each block's at its
+    own code (a device tensor: no host read)."""
+    if qdq_fn is None:
+        return gp
+    return {f"b{i}": tu.tree_map(lambda w, c=codes[i]: qdq_fn(w, c),
+                                 gp[f"b{i}"])
+            for i in range(len(defs))}
+
+
+def _train_layer(gpi, x, pos, defs, sc: StackConfig, segments, codes=None,
+                 qdq_fn=None):
+    gpi = _apply_qdq(gpi, codes, qdq_fn, defs)
     for i, bd in enumerate(defs):
         x, _ = _block_fwd(gpi[f"b{i}"], x, pos, bd, sc, "train",
                           segments=segments)
@@ -177,21 +190,31 @@ def stack_fwd(params, x, pos, sc: StackConfig, mode: str = "train",
     """Run the stack -> (x, caches, aux). Train mode returns no caches and
     the zero MoE aux terms; prefill returns fresh stacked caches (layers,
     B, S, ...); decode updates ``caches`` in place and returns them.
-    ``codes``/``qdq_fn`` (the in-loss precision emulation) must be None:
-    that belongs to ``reference_step``, not ported yet."""
-    refuse_qdq(codes, qdq_fn)
+    ``codes`` ((num_layers,) int32, train mode only) are the layers'
+    precision codes for ``qdq_fn``, the in-loss precision emulation;
+    without ``codes`` every layer takes tier 1 (bf16)."""
     if mode == "train":
         flags = attn_lib.dispatch_flags()
         ctx = lambda: (contextlib.nullcontext(),           # noqa: E731
                        attn_lib.dispatch_context(flags))
+        layer0 = 0
         for si, (defs, n) in enumerate(sc.segments):
-            for gpi in _layers(params[f"seg{si}"], n):
+            k = len(defs)
+            seg_codes = [None] * n
+            if qdq_fn is not None:
+                seg_codes = (codes[layer0:layer0 + n * k].reshape(n, k)
+                             if codes is not None else
+                             torch.ones((n, k), dtype=torch.int32,
+                                        device=x.device)).unbind(0)
+            layer0 += n * k
+            for gpi, ci in zip(_layers(params[f"seg{si}"], n), seg_codes):
                 if sc.remat:
                     x = checkpoint(_train_layer, gpi, x, pos, defs, sc,
-                                   segments, use_reentrant=False,
+                                   segments, ci, qdq_fn, use_reentrant=False,
                                    context_fn=ctx, preserve_rng_state=False)
                 else:
-                    x = _train_layer(gpi, x, pos, defs, sc, segments)
+                    x = _train_layer(gpi, x, pos, defs, sc, segments, ci,
+                                     qdq_fn)
         return x, None, _aux_zeros(x.device)
     if mode not in ("prefill", "decode"):
         raise ValueError(f"unknown mode {mode!r}")

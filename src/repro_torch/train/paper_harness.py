@@ -3,12 +3,15 @@ ablations on the paper's ResNet-18 / CIFAR-class testbed, through the
 ported ``Trainer``.
 
 Method wiring (Table 1 + Table 2 ablations):
+    fp32          true fp32, no rounding (reference_step)  (paper FP32)
     amp           static codes=1 (uniform bf16)            (paper AMP)
     batch_only    static codes=1 + memory-elastic rungs    (Table 2 row 2)
     prec_only     dynamic per-layer codes, fixed batch     (Table 2 row 3)
     triaccel      dynamic codes + curvature LR + rungs     (full method)
     triaccel_fp8  the full method on the tpu (fp8) ladder
-``fp32`` needs ``reference_step`` and raises until that is ported.
+``fp32`` turns dynamic precision off, so its trainer runs
+``reference_step`` over tree-form state; the others run the slab-resident
+fused step.
 
 Metrics per the paper: top-1 accuracy on a held-out stream, wall-clock
 time per epoch on this device, modeled time per epoch (tier speed
@@ -36,7 +39,7 @@ PAPER_FP32_GB = {"resnet18": 0.35, "efficientnet_b0": 0.301}
 TIER_SPEED = {"gpu": {0: 4.0, 1: 4.0, 2: 1.0},
               "tpu": {0: 8.0, 1: 4.0, 2: 1.0}}
 
-_PORTED_METHODS = ("amp", "batch_only", "prec_only", "triaccel",
+_PORTED_METHODS = ("fp32", "amp", "batch_only", "prec_only", "triaccel",
                    "triaccel_fp8")
 
 
@@ -136,10 +139,7 @@ def make_trainer(method: str, arch: str = "resnet18", steps: int = 60,
         raise NotImplementedError(
             f"arch {arch!r} is not ported yet (ROADMAP A5: only resnet18)")
     if method not in _PORTED_METHODS:
-        raise NotImplementedError(
-            f"method {method!r} needs reference_step, which is not ported "
-            "yet (ROADMAP A6)" if method == "fp32"
-            else f"unknown method {method!r}")
+        raise NotImplementedError(f"unknown method {method!r}")
     cfg = VisionConfig(name=arch, num_classes=num_classes)
     task = VisionTask(cfg, device=device)
 
@@ -156,7 +156,7 @@ def make_trainer(method: str, arch: str = "resnet18", steps: int = 60,
         seed=seed, seq_len=1, rungs=rungs, start_rung=batch0,
         ckpt_dir=ckpt_dir, log_every=1, b_curv=tac.b_curv)
     trainer = Trainer(task, tac, tcfg, device=device)
-    if method in ("amp", "prec_only"):
+    if method in ("fp32", "amp", "prec_only"):
         trainer.scaler.idx = rungs.index(batch0)  # fixed-batch baselines
     return trainer, task, mm, tac
 
@@ -180,7 +180,9 @@ def run_method(method: str, arch: str = "resnet18", steps: int = 60,
     acc = 100.0 * sum(accs) / len(accs)
 
     codes = [int(c) for c in trainer.state.control.codes.tolist()]
-    if method == "amp":
+    if method == "fp32":
+        codes = [2] * len(codes)
+    elif method == "amp":
         codes = [1] * len(codes)
     model_time = _trajectory_time(log, method, steps, tac.ladder) / \
         max(steps, 1)

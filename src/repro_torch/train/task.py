@@ -28,7 +28,6 @@ import torch.nn.functional as F
 from repro_torch import resolve_device
 from repro_torch import tree as tu
 from repro_torch.core.grouping import flat_grouping, lm_grouping
-from repro_torch.core.precision import refuse_qdq
 from repro_torch.data.synthetic import CIFARLikeStream, LMTaskStream
 from repro_torch.kernels import ops
 from repro_torch.models.lm import (LMConfig, lm_decode_step, lm_init,
@@ -45,6 +44,15 @@ class TensorSpec(NamedTuple):
 def _serve_batch_size(batch) -> int:
     """Leading dim of any batch leaf (tensors or ``TensorSpec``s)."""
     return int(next(iter(batch.values())).shape[0])
+
+
+def apply_codes(params, codes, qdq_fn, keys):
+    """Per-top-level-block QDQ actuation (the vision counterpart of the LM
+    stack's per-layer codes): block ``keys[i]`` rounds at ``codes[i]``."""
+    if qdq_fn is None:
+        return params
+    return {k: tu.tree_map(lambda w, c=codes[i]: qdq_fn(w, c), params[k])
+            for i, k in enumerate(keys)}
 
 
 @dataclasses.dataclass
@@ -74,7 +82,8 @@ class VisionTask:
                            self.device if device is None else device)
 
     def loss(self, params, aux_state, batch, codes, qdq_fn):
-        refuse_qdq(codes, qdq_fn)
+        if codes is not None:
+            params = apply_codes(params, codes, qdq_fn, sorted(params))
         logits, new_aux = vision_apply(params, aux_state, batch["images"],
                                        True, self.cfg)
         labels = batch["labels"].long()
@@ -148,8 +157,9 @@ class LMTask:
         return seq_len
 
     def loss(self, params, aux_state, batch, codes, qdq_fn):
-        refuse_qdq(codes, qdq_fn)
-        total, metrics = lm_loss(params, batch, self.cfg)
+        total, metrics = lm_loss(params, batch, self.cfg,
+                                 codes=codes if qdq_fn is not None else None,
+                                 qdq_fn=qdq_fn)
         return total, aux_state, {k: v.detach() for k, v in metrics.items()}
 
     def grouping(self, params):

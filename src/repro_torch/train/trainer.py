@@ -1,7 +1,9 @@
 """Host-side training engine: the Tri-Accel control cadence around the
-slab-resident fused step, on one device.
+train step, on one device.
 
-  * every step: the fused train step (``train_step.make_train_step``);
+  * every step: the train step (``train_step.make_train_step``) — the
+    slab-resident fused step, or ``reference_step`` over tree-form state
+    when the update is not fused (the FP32 and static-AMP baselines);
   * every ``t_curv`` steps: the §3.2 fisher curvature refresh on a small
     batch;
   * every ``t_ctrl`` steps: the §3.3 rung controller, fed the peak bytes
@@ -95,25 +97,33 @@ class Trainer:
                                  tcfg.total_steps)
         self.fused = (tcfg.fused_update if tcfg.fused_update is not None
                       else resolve_fused(opt, tac))
+        # slab residency: master, moments and compute copy live as (rows,
+        # 512) slabs across steps whenever the step is fused (it needs an
+        # all-floating params tree); the reference path keeps the tree
         self.resident = self.fused and all(
             l.dtype.is_floating_point for l in tu.leaves(params))
-        if not self.resident:
+        if self.fused and not self.resident:
             raise NotImplementedError(
-                "only the slab-resident fused path is ported (ROADMAP A6): "
-                "reference_step and the tree-form fused_step are not")
+                "the tree-form fused_step (a params tree with non-floating "
+                "leaves) is not ported (ROADMAP A6)")
         self._params_like = tu.tree_map(
             lambda x: torch.empty(x.shape, dtype=x.dtype, device="meta"),
             params)
-        self.view = slab_view(params, self.grouping)
+        self.view = (slab_view(params, self.grouping) if self.resident
+                     else None)
         self._step_fn = make_train_step(
             task, tac, opt, self.grouping, schedule, accum=tcfg.accum,
-            grad_clip=tcfg.grad_clip, fused_update=True,
-            resident_params=self._params_like)
+            grad_clip=tcfg.grad_clip, fused_update=self.fused,
+            resident_params=self._params_like if self.resident else None)
         control = init_control(self.grouping.num_layers, tac, self.device)
-        compute = init_compute(task, params, self.grouping, control, tac)
-        state = TrainState(params, aux_state, opt.init(params), control,
-                           compute)
-        self.state = pack_state(self.view, state, task.compute_dtype)
+        if self.resident:
+            compute = init_compute(task, params, self.grouping, control, tac)
+            state = TrainState(params, aux_state, opt.init(params), control,
+                               compute)
+            self.state = pack_state(self.view, state, task.compute_dtype)
+        else:
+            self.state = TrainState(params, aux_state, opt.init(params),
+                                    control, ())
 
         mm = task.memory_model(params, opt_slots=opt.slots)
         self.scaler = BatchScaler(tcfg.rungs,
@@ -128,8 +138,10 @@ class Trainer:
 
     # ------------------------------------------------------------- utils --
     def params_tree(self):
-        """f32 master params in TREE form (views of the master slab) — the
-        eval/export boundary."""
+        """f32 master params in TREE form (on the resident path, views of
+        the master slab) — the eval/export boundary."""
+        if not self.resident:
+            return self.state.params
         return self.view.unpack(self.state.params, like=self._params_like)
 
     def _batch_for_rung(self, rung: int, step: int):

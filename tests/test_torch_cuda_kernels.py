@@ -6,6 +6,9 @@ machine with an H100 and the CUDA toolkit:
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda_kernels.py
 
 Tolerances as in ``chip_smoke.py``: qdq_cast bitwise (NaN equal to NaN);
+grad_stats' absmax bitwise, its sums within 2^-20 of the sum of the
+terms' magnitudes of an f64 sum, non-finite inputs in the same class, two
+launches bitwise equal;
 the attention kernels, forward and backward, within
 ``flash_attention.tolerance`` (in f32 1e-5 of the tensor's largest
 magnitude plus 1e-5 relative, in bf16 one bf16 ulp more); the
@@ -18,6 +21,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
+from repro_torch.kernels import grad_stats as gs  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import qdq_cast as qc  # noqa: E402
 
@@ -52,6 +56,39 @@ def test_qdq_cast_kernel_bitwise(card, ladder, dtype):
         for code in (0, 1, 2):
             got = ops.qdq_cast(x, code, ladder, amax)
             assert _same(got, qc.qdq_cast_ref(x, code, ladder, amax))
+
+
+@pytest.mark.parametrize("shape", [(64,), (513, 129), (1024, 512),
+                                   (7, 3, 5), (8,), (0,), (1_000_000,)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+def test_grad_stats_kernel_matches_plain(card, shape, dtype):
+    g = torch.Generator(device=card).manual_seed(0)
+    x = (torch.randn(shape, generator=g, device=card) * 2).to(dtype)
+    got = ops.grad_stats(x)
+    again = ops.grad_stats(x)
+    want = gs.grad_stats_ref(x)
+    assert all(t.dim() == 0 and t.dtype == torch.float32 for t in got)
+    assert all(_same(a, b) for a, b in zip(got, again))
+    assert _same(got[2], want[2])
+    v = x.double().reshape(-1)
+    for k, (truth, mass) in enumerate(((v.sum(), v.abs().sum()),
+                                       ((v * v).sum(), (v * v).sum()))):
+        assert float((got[k].double() - truth).abs()) <= 2.0 ** -20 * float(
+            mass)
+
+
+@pytest.mark.parametrize("bad", [float("nan"), float("inf"), -float("inf")])
+def test_grad_stats_kernel_non_finite_and_strided(card, bad):
+    x = torch.randn((300, 77), device=card)
+    x[17, 3] = bad
+    cls = lambda t: ("nan" if torch.isnan(t) else str(float(t))  # noqa
+                     if torch.isinf(t) else "finite")
+    got, want = ops.grad_stats(x.T), gs.grad_stats_ref(x)
+    assert [cls(t) for t in got] == [cls(t) for t in want]
+    assert _same(got[2], want[2])
+    off = ops.grad_stats(x.reshape(-1)[1:])     # a 4-byte-aligned start
+    assert _same(off[2], gs.grad_stats_ref(x.reshape(-1)[1:])[2])
 
 
 @pytest.mark.parametrize("variant", ["causal", "noncausal", "window",

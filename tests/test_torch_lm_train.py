@@ -204,17 +204,50 @@ def test_layer_views_by_unbind_give_the_indexing_gradient(ref,
         assert torch.equal(a, b)
 
 
-def test_stack_train_mode_refuses_in_loss_qdq():
+def test_stack_train_mode_refuses_in_loss_qdq(ref):
+    """The stack's train mode refused the in-loss QDQ until
+    ``reference_step`` was ported; now ``stack_fwd`` with per-layer codes
+    (and ``lm_loss`` through it, codes 0/1 on the gpu ladder) matches the
+    reference's, loss within rtol 1e-4 and gradients leaf by leaf within
+    5e-2 of the leaf's largest magnitude (the tolerances above), and
+    ``LMTask.loss`` passes the codes on only with a ``qdq_fn``."""
+    from repro.core.precision import qdq as jqdq
+    from repro_torch.core.precision import qdq
     cfg = conf.flash_test_config(2)
-    params = lm.lm_init(torch.Generator(), cfg)
-    x = torch.zeros((1, S, 64), dtype=torch.bfloat16)
+    codes = np.asarray([0, 1], np.int32)
+    params, batch = _port_params(ref), _batch(ref)
+    cp = tu.tree_map(lambda x: x.to(torch.bfloat16), params)
+
+    def jloss(p):
+        p = jax.tree.map(lambda x: x.astype(jnp.bfloat16), p)
+        return jlm.lm_loss(p, ref["batch"], ref["cfg"],
+                           codes=jnp.asarray(codes),
+                           qdq_fn=lambda w, c: jqdq(w, c, "gpu"))[0]
+
+    want, jgrad = jax.value_and_grad(jloss)(ref["params"])
+    leaves, td = tu.flatten(params)
+    wrt = [x.detach().requires_grad_(True) for x in leaves]
+    p = tu.tree_map(lambda x: x.to(torch.bfloat16), tu.unflatten(td, wrt))
+    got = lm.lm_loss(p, batch, cfg, codes=torch.from_numpy(codes),
+                     qdq_fn=lambda w, c: qdq(w, c, "gpu"))[0]
+    np.testing.assert_allclose(float(got), float(want), rtol=1e-4)
+    _leafwise(tu.unflatten(td, list(torch.autograd.grad(got, wrt))), jgrad,
+              5e-2, "grad")
+    # the codes reach the stack: tier 0 (fp16) rounds, unlike tier 2
+    x = torch.randn((1, S, 64), generator=torch.Generator().manual_seed(1)
+                    ).to(torch.bfloat16)
     pos = torch.arange(S, dtype=torch.int32)[None]
-    with pytest.raises(NotImplementedError, match="reference_step"):
-        blocks.stack_fwd(params["stack"], x, pos, cfg.stack, mode="train",
-                         codes=torch.ones(2, dtype=torch.int32),
-                         qdq_fn=lambda w, c: w)
-    with pytest.raises(NotImplementedError, match="reference_step"):
-        LMTask(cfg, device="cpu").loss(params, {}, {}, torch.ones(4), None)
+    f = lambda c: blocks.stack_fwd(                         # noqa: E731
+        cp["stack"], x, pos, cfg.stack, mode="train",
+        codes=torch.tensor(c, dtype=torch.int32),
+        qdq_fn=lambda w, k: qdq(w, k, "gpu"))[0]
+    plain = blocks.stack_fwd(cp["stack"], x, pos, cfg.stack, mode="train")[0]
+    assert torch.equal(f([2, 2]), plain)
+    assert torch.equal(f([1, 1]), plain)      # bf16 weights: tier 1 no-op
+    task = LMTask(cfg, device="cpu")
+    ignored = task.loss(cp, {}, batch, torch.zeros(4, dtype=torch.int32),
+                        None)[0]
+    assert torch.equal(ignored, task.loss(cp, {}, batch, None, None)[0])
 
 
 # -------------------------------------------------------------- grouping --
@@ -395,9 +428,26 @@ def test_launcher_trains_on_the_cpu(capsys):
 
 @pytest.mark.parametrize("flag", [["--ckpt", "/nonexistent"],
                                   ["--distributed"], ["--no-triaccel"]])
-def test_launcher_unported_flags_raise(flag):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        launch_train.main(["--device", "cpu", "--steps", "1"] + flag)
+def test_launcher_unported_flags_raise(flag, capsys):
+    """``--ckpt`` and ``--distributed`` are not ported and raise.
+    ``--no-triaccel`` raised until ``reference_step`` was ported: it now
+    trains the static bf16 baseline on the CPU, on the reference path,
+    with every control off and the rung fixed."""
+    if flag != ["--no-triaccel"]:
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            launch_train.main(["--device", "cpu", "--steps", "1"] + flag)
+        return
+    tr = launch_train.main(["--arch", "smollm-135m", "--reduced", "--seq",
+                            "64", "--rungs", "2", "--ladder", "gpu",
+                            "--device", "cpu", "--steps", "2"] + flag)
+    lines = capsys.readouterr().out.strip().splitlines()
+    assert len(lines) == 1 and '"loss"' in lines[0]
+    assert not tr.fused and tr.state.compute == ()
+    assert not (tr.tac.dynamic_precision or tr.tac.enable_precision
+                or tr.tac.enable_curvature or tr.tac.enable_batch)
+    assert int(tr.state.control.step) == 2
+    assert all(x["grads_finite"] == 1.0 for x in tr.metrics_log)
+    assert tr.scaler.microbatch == 2 and tr.scaler.history == []
 
 
 def test_trainer_runs_the_flash_config_on_the_cpu():

@@ -189,5 +189,22 @@ def test_entry_points_need_a_card_for_cuda(monkeypatch):
 @pytest.mark.parametrize("args", [("fp32", "resnet18"),
                                   ("triaccel", "efficientnet_b0")])
 def test_unported_methods_raise(args):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        paper_harness.run_method(*args, steps=1, device="cpu")
+    """EfficientNet-B0 is not ported and raises. The FP32 baseline raised
+    here until ``reference_step`` was ported: it now runs on the CPU, on
+    the reference path over tree-form state, at the fixed rung, with the
+    codes reported as fp32."""
+    if args[0] != "fp32":
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            paper_harness.run_method(*args, steps=1, device="cpu")
+        return
+    trainer = paper_harness.make_trainer(*args, steps=2, batch0=4,
+                                         device="cpu")[0]
+    assert not trainer.fused and not trainer.resident
+    assert trainer.params_tree() is trainer.state.params
+    res = paper_harness.run_method(*args, steps=2, batch0=4, device="cpu")
+    assert len(res.log) == 2
+    assert all(np.isfinite(m["loss"]) and m["grads_finite"] == 1.0
+               for m in res.log)
+    assert res.codes == [2] * 11
+    assert res.final_batch == 4 and res.batch_history == []
+    assert 0.0 <= res.accuracy <= 100.0
