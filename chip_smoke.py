@@ -7,7 +7,9 @@ Phases (any failure raises and the script exits non-zero):
 
   1. the card (``nvidia-smi``), torch and CUDA versions;
   2. build every CUDA source under ``src/repro_torch/kernels/csrc`` with
-     ``nvcc`` (all sources at once), print the seconds and the ptxas report;
+     ``nvcc`` (all sources at once), print the seconds and the ptxas report
+     (for the flash forward and backward sources, each instantiation's
+     registers and spills);
   3. hold each kernel against its plain PyTorch version on the card, time
      both with CUDA events, compute the least time the card could take
      (``bound_ms``) and time one PyTorch call computing the same function
@@ -19,17 +21,28 @@ Phases (any failure raises and the script exits non-zero):
          variant, bitwise;
        - qdq_cast over every variant and over all of smollm-135m's leaves
          (the main path's tier-0 cast), bitwise;
-       - flash_attention over every variant at the test shapes and at the
-         main path's prefill (S 1024, 9/3 heads, head_dim 64, bf16);
+       - flash_attention, both routes (``flash_attention.fwd_route``): the
+         tensor-core kernel (bf16) over every variant (causal, not causal,
+         window, segments; GQA rep 1 and 3; (D, Dv) in (16, 16), (64, 64),
+         (128, 128), (192, 192), (256, 256), (192, 128)) and at the main
+         paths' shapes (B 1, 2, 4, 8, S 1024, 9/3 heads, head_dim 64, with
+         the LSE); the SIMT kernel (f32 at head dims 16 and 64, bf16 at 24
+         and 40, which its route takes) over every variant at the test
+         shapes; both timed at the serving
+         prefill's shape (B 1, S 1024) beside SDPA, the SIMT kernel also
+         in f32, its route's type;
        - flash_decode over ragged lengths (0, 1, L, between) and at the
          main path's decode (4 rows against a 2048-slot cache);
        - the three flash backward kernels (delta, dQ, dK/dV) over every
-         variant, and with the forward kernel (LSE output on) at the LM
-         training shapes (B 2, 4 and 8, S 1024, 9/3 heads, head_dim 64,
-         bf16, causal), timed at B 8 against the forward and the backward
-         of ``scaled_dot_product_attention``; the differentiable
-         ``ops.flash_attention`` against autograd through the plain
-         forward;
+         variant, at the wide head dims (192, 192), (256, 256), (192, 128)
+         (32-row tiles; causal and windowed, f32 and bf16; timed at head
+         dim 256, B 1, S 1024 beside SDPA, log only), and with the
+         forward kernel (LSE output on) at the LM training shapes (B 2, 4
+         and 8, S 1024, 9/3 heads, head_dim 64, bf16, causal), timed at B
+         8 against the forward and the backward of
+         ``scaled_dot_product_attention`` (the forward's SIMT kernel
+         beside it); the differentiable ``ops.flash_attention`` against
+         autograd through the plain forward, head dim 256 included;
        - grad_stats over the reference's test shapes (f32, bf16), its
          benchmark's (1024, 1024) and its registry's (1,000,000,) f32, an
          empty tensor and tensors holding NaN, +inf, -inf; absmax bitwise,
@@ -47,23 +60,26 @@ Phases (any failure raises and the script exits non-zero):
        - serving: ``ServeSession`` over smollm-135m at full width (30
          layers), prompt 1024, cache 2048, rungs 1/2/4, tiers 1 then 0,
          eight requests of 64 tokens in two waves; the launch counts must
-         equal 30 x prefills (flash_attention), 30 x decode steps
-         (flash_decode) and the tier-0 leaves (qdq_cast), and no attention
-         gate may fall back;
+         equal 30 x prefills (flash_attention, every one on the
+         tensor-core route), 30 x decode steps (flash_decode) and the
+         tier-0 leaves (qdq_cast), and no attention gate may fall back;
        - LM training: ``repro_torch.launch.train.main`` for smollm-135m at
          30 layers, S 1024, rungs 2/4/8, 20 steps (``LM_TRAIN_ARGS``,
          t_ctrl / t_curv lowered to 5 / 10 so both controls fire); the
          counts must equal 2 x 30 forward launches (forward and remat
-         recompute) and 30 of each backward kernel a step;
+         recompute, all on the tensor-core route) and 30 of each backward
+         kernel a step;
   6. where the time goes: ``torch.profiler`` over a few ResNet-18 train
-     steps, over a few decode steps at rung 4 and over one LM train step
-     at rung 8; the LM step time per rung;
+     steps, over one serving step that admits four prompts (the prefill),
+     over a few decode steps at rung 4 and over one LM train step at rung
+     8; the LM step time per rung;
   7. the reference step's main paths, with the launch counts read around
      each: ``run_method("fp32", "resnet18", steps=20, batch0=32)`` (no
      fused-update launch, codes reported fp32, the rung fixed at 32) and
      ``launch.train.main`` with ``--no-triaccel`` for smollm-135m at 30
-     layers, S 1024, rung 8, 10 steps (2 x 30 forward and 30 of each
-     backward kernel a step, no fused update); then grad_stats' path, its
+     layers, S 1024, rung 8, 10 steps (2 x 30 forward, on the tensor-core
+     route, and 30 of each backward kernel a step, no fused update); then
+     grad_stats' path, its
      public op over every leaf of each path's reference-step gradient
      tree (f32, after the loss-scale division), counted around those calls
      and held against the plain version, timed on the largest leaf
@@ -75,7 +91,11 @@ training; grad_stats: ResNet-18's and smollm-135m's gradient trees) has a
 row for each in the ``kernels`` line, the second named
 ``<kernel>@lm_train`` (``grad_stats@lm_reference``): its launches on that
 path beside its time at that path's shape. The reference paths make no
-grad_stats launch themselves, as in the reference.
+grad_stats launch themselves, as in the reference. The flash forward's
+rows carry ``fwd_route``: ``flash_attention`` and
+``flash_attention@lm_train`` are the tensor-core kernel, which the main
+paths run; ``flash_attention_simt`` is the SIMT kernel f32 callers get (no
+main path launches it), timed in f32.
 
 The last three lines are the ``kernels`` JSON line, the card's name and
 power limit, and ``{"ok": true, "device": {...}}``. Without a card (or
@@ -108,8 +128,10 @@ KERNELS = {
                     "src/repro/kernels/fused_update.py:317"),
     "qdq_cast": (f"{CSRC}/qdq_cast.cu",
                  "src/repro/kernels/qdq_cast.py:98"),
-    "flash_attention": (f"{CSRC}/flash_attention.cu",
+    "flash_attention": (f"{CSRC}/flash_fwd_sm90.cu",
                         "src/repro/kernels/flash_attention.py:222"),
+    "flash_attention_simt": (f"{CSRC}/flash_attention.cu",
+                             "src/repro/kernels/flash_attention.py:222"),
     "flash_attention_bwd_delta": (
         f"{CSRC}/flash_attention_bwd.cu",
         "src/repro/kernels/flash_attention.py:379"),
@@ -149,6 +171,33 @@ def card_line() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()[0]
+
+
+def ptxas_kernels(text: str):
+    """-> [(kernel, registers, bytes of spill stores)] from an nvcc -Xptxas
+    -v log, names demangled with the toolkit's cu++filt where it has one."""
+    out, name, spill = [], None, 0
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name, spill = m.group(1), 0
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m:
+            spill = int(m.group(1))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            out.append((name, int(m.group(1)), spill))
+            name = None
+    filt = Path("/usr/local/cuda/bin/cu++filt")
+    if out and filt.exists():
+        names = subprocess.run(
+            [str(filt)], input="\n".join(n for n, _, _ in out),
+            capture_output=True, text=True, timeout=60).stdout.splitlines()
+        if len(names) == len(out):
+            out = [(re.sub(r"^void |<unnamed>::|\(anonymous namespace\)::",
+                           "", re.sub(r"\(.*", "", d.replace("(int)", ""))),
+                    r, sp) for d, (_, r, sp) in zip(names, out)]
+    return out
 
 
 def peaks(name: str):
@@ -891,64 +940,142 @@ def _sdpa(q, k, v, **kw):
             **kw)
 
 
-def check_flash(dev, bw, tc_rate):
-    """The forward kernel against its plain version over every variant
-    (causal, not causal, window, segments, LSE; f32 and bf16) at the test
-    shapes, then at the main path's prefill: B 1, S 1024, 9 heads, kv 3,
-    head_dim 64, bf16, causal."""
+#: (D, Dv) at which the tensor-core forward is held to the plain version:
+#: the test and LM head dims, the wide heads, and a Dv != D
+TC_HEAD_DIMS = ((16, 16), (64, 64), (128, 128), (192, 192), (256, 256),
+                (192, 128))
+
+
+def _flash_pair(q, k, v, seg, kw, what, route):
+    """The forward kernel of ``route`` (checked against ``fwd_route``)
+    against the plain forward, o within ``tolerance`` and the LSE within
+    ``close_lse``."""
+    from repro_torch.kernels import flash_attention as fa
+    check(fa.fwd_route(q.dtype, q.shape[-1], v.shape[-1]) == route,
+          f"{what}: the {route} route")
+    o, lse = fa.flash_attention_cuda(q, k, v, seg, with_lse=True, **kw)
+    o_r, lse_r = fa.flash_attention_ref(q, k, v, seg, with_lse=True, **kw)
+    err = close(o, o_r, what)
+    close_lse(lse, lse_r, what)
+    return err
+
+
+def check_flash(dev, bw, f32_ops, tc_rate):
+    """Both forward kernels against the plain version. The tensor-core
+    kernel (bf16) over every variant (causal, not causal, window,
+    segments), GQA rep 1 and 3 and each (D, Dv) of ``TC_HEAD_DIMS`` at S
+    256, then at the main paths' shapes: B 1, 2, 4, 8, S 1024, 9 heads, kv
+    3, head_dim 64, causal, with the LSE. The SIMT kernel over every
+    variant at the test shapes (S 256 and 512, GQA rep 2 and 3), in f32
+    at head dims 16 and 64 and in bf16 at 24 and 40 (``fwd_route`` sends
+    both there). Each
+    held to ``tolerance`` (o) and ``close_lse`` (LSE). Timed at the serving
+    prefill's shape (B 1, S 1024, causal, bf16, no LSE): both kernels,
+    the plain version, SDPA and the bound; the SIMT kernel also in f32."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ops
     gen = torch.Generator(device=dev).manual_seed(6)
-    err, n = 0.0, 0
-    cases = [(S, hk, D) for S in (256, 512) for hk in ((4, 2), (9, 3))
-             for D in (16, 64)]
-    for S, (H, K), D in cases:
-        for dtype in (torch.float32, torch.bfloat16):
-            q, k, v = (torch.randn((2, S, h, D), generator=gen, device=dev
-                                   ).to(dtype) for h in (H, K, K))
-            for variant in ("causal", "noncausal", "window", "segments"):
-                seg = _segments(2, S, dev, S) if variant == "segments" \
-                    else None
-                kw = dict(causal=variant != "noncausal",
-                          window=100 if variant == "window" else 0)
-                o, lse = fa.flash_attention_cuda(q, k, v, seg, with_lse=True,
-                                                 **kw)
-                o_r, lse_r = fa.flash_attention_ref(q, k, v, seg,
-                                                    with_lse=True, **kw)
-                what = f"flash {S} {H}/{K} {D} {dtype} {variant}"
-                err = max(err, close(o, o_r, what))
-                close_lse(lse, lse_r, what)
-                n += 1
-    torch.cuda.synchronize()
-    log(f"flash_attention: {n} variants within tolerance "
-        f"(max|err| {err:.3g})")
+    variants = ("causal", "noncausal", "window", "segments")
 
-    B, S, H, K, D = 1, 1024, 9, 3, 64
-    q, k, v = (torch.randn((B, S, h, D), generator=gen, device=dev
-                           ).to(torch.bfloat16) for h in (H, K, K))
+    def inputs(B, S, H, K, D, Dv, dtype):
+        return tuple(torch.randn(sh, generator=gen, device=dev).to(dtype)
+                     for sh in ((B, S, H, D), (B, S, K, D), (B, S, K, Dv)))
+
+    def kw_of(variant):
+        return dict(causal=variant != "noncausal",
+                    window=100 if variant == "window" else 0)
+
+    err_tc, n_tc = 0.0, 0
+    for D, Dv in TC_HEAD_DIMS:
+        for H, K in ((4, 4), (9, 3)):
+            q, k, v = inputs(2, 256, H, K, D, Dv, torch.bfloat16)
+            for variant in variants:
+                seg = _segments(2, 256, dev, D + H) \
+                    if variant == "segments" else None
+                err_tc = max(err_tc, _flash_pair(
+                    q, k, v, seg, kw_of(variant),
+                    f"flash tc {D}/{Dv} {H}/{K} {variant}", "tc"))
+                n_tc += 1
+    S, H, K, D = 1024, 9, 3, 64
+    for B in (1, 2, 4, 8):
+        q, k, v = inputs(B, S, H, K, D, D, torch.bfloat16)
+        err_tc = max(err_tc, _flash_pair(q, k, v, None, kw_of("causal"),
+                                         f"flash tc main shape B{B}", "tc"))
+        n_tc += 1
+    err_simt, n_simt = 0.0, 0
+    for S_ in (256, 512):
+        for H_, K_ in ((4, 2), (9, 3)):
+            for D_, dtype in ((16, torch.float32), (64, torch.float32),
+                              (24, torch.bfloat16), (40, torch.bfloat16)):
+                q, k, v = inputs(2, S_, H_, K_, D_, D_, dtype)
+                for variant in variants:
+                    seg = _segments(2, S_, dev, S_) \
+                        if variant == "segments" else None
+                    err_simt = max(err_simt, _flash_pair(
+                        q, k, v, seg, kw_of(variant),
+                        f"flash simt {S_} {H_}/{K_} {D_} {dtype} "
+                        f"{variant}", "simt"))
+                    n_simt += 1
+    torch.cuda.synchronize()
+    log(f"flash_attention: tensor-core kernel {n_tc} variants, SIMT kernel "
+        f"{n_simt} variants within tolerance (max|err| {err_tc:.3g}, "
+        f"{err_simt:.3g})")
+
+    B = 1
+    q, k, v = inputs(B, S, H, K, D, D, torch.bfloat16)
     got = ops.flash_attention(q, k, v, causal=True)
     want = fa.flash_attention_ref(q, k, v, causal=True)
-    err = max(err, close(got, want, "flash main shape"))
-    lib = fa._lib()
+    err_tc = max(err_tc, close(got, want, "flash main shape"))
+    tc_lib, simt_lib = fa._tc_lib(), fa._lib()
     o = torch.empty_like(q)
     stream = torch.cuda.current_stream().cuda_stream
 
-    def raw():
-        lib.tri_flash_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), None,
-                          o.data_ptr(), None, 1, B, S, H, K, D, D, 1, 0,
-                          D ** -0.5, stream)
+    def raw_tc():
+        tc_lib.tri_flash_fwd_tc(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                                None, o.data_ptr(), None, B, S, H, K, D, D,
+                                1, 0, D ** -0.5, stream)
 
-    ms = time_ms(raw, iters=20)
+    def raw_simt(x, y, z, out, code):
+        simt_lib.tri_flash_fwd(x.data_ptr(), y.data_ptr(), z.data_ptr(),
+                               None, out.data_ptr(), None, code, B, S, H, K,
+                               D, D, 1, 0, D ** -0.5, stream)
+
+    ms = time_ms(raw_tc, iters=20)
+    simt_bf16 = time_ms(lambda: raw_simt(q, k, v, o, 1), iters=20)
     plain_ms = time_ms(lambda: fa.flash_attention_ref(q, k, v), iters=3)
     lib_ms = time_ms(lambda: _sdpa(q, k, v, is_causal=True), iters=20)
-    nbytes = 2 * (2 * B * S * H * D + 2 * B * S * K * D)
     pairs = B * H * S * (S + 1) / 2            # causal pairs this run needs
+    nbytes = 2 * (2 * B * S * H * D + 2 * B * S * K * D)
     b_ms, by = bound(nbytes, pairs * 4 * D, bw, tc_rate)
-    log(f"flash_attention B{B} S{S} H{H}/K{K} D{D} bf16 causal: kernel "
-        f"{ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound "
-        f"{b_ms:.5f} ms ({by})")
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": b_ms, "bound_by": by, "library_ms": lib_ms}
+    log(f"flash_attention B{B} S{S} H{H}/K{K} D{D} bf16 causal: tensor-core "
+        f"kernel {ms:.4f} ms, SIMT kernel {simt_bf16:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound {b_ms:.5f} ms "
+        f"({by})")
+    out = {"flash_attention": {
+        "max_abs_err": err_tc, "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": b_ms, "bound_by": by, "library_ms": lib_ms,
+        "fwd_route": "tc"}}
+
+    # the SIMT kernel at the same shape in f32, the type its route takes
+    q32, k32, v32 = (x.float() for x in (q, k, v))
+    o32 = torch.empty_like(q32)
+    err_simt = max(err_simt, close(
+        fa.flash_attention_cuda(q32, k32, v32, causal=True),
+        fa.flash_attention_ref(q32, k32, v32, causal=True),
+        "flash simt main shape f32"))
+    ms32 = time_ms(lambda: raw_simt(q32, k32, v32, o32, 0), iters=10)
+    plain32 = time_ms(lambda: fa.flash_attention_ref(q32, k32, v32),
+                      iters=3)
+    lib32 = time_ms(lambda: _sdpa(q32, k32, v32, is_causal=True), iters=10)
+    b32, by32 = bound(2 * nbytes, pairs * 4 * D, bw, f32_ops)
+    log(f"flash_attention_simt B{B} S{S} H{H}/K{K} D{D} f32 causal: kernel "
+        f"{ms32:.4f} ms, plain {plain32:.4f} ms, sdpa {lib32:.4f} ms, bound "
+        f"{b32:.5f} ms ({by32}, f32 outside the tensor cores)")
+    out["flash_attention_simt"] = {
+        "max_abs_err": err_simt, "ms": ms32, "plain_ms": plain32,
+        "bound_ms": b32, "bound_by": by32, "library_ms": lib32,
+        "fwd_route": "simt"}
+    return out
 
 
 def _bwd_inputs(B, S, H, K, D, Dv, dtype, dev, gen, seg=None, **kw):
@@ -991,12 +1118,16 @@ def check_flash_bwd(dev, bw, tc_rate):
     dims 16 and 64 and two Dv != D; f32 and bf16) within
     ``flash_attention.tolerance`` (1e-5 of the largest magnitude plus 1e-5
     relative, and one bf16 ulp in bf16: the sums run in another order and
-    nvcc contracts a*b+c). Then at the LM training path's shapes, B = each
+    nvcc contracts a*b+c). Then at the wide head dims (192, 192),
+    (256, 256) and (192, 128), where the dQ and dK/dV kernels take 32-row
+    tiles (``flash_attention.bwd_rows``): causal and windowed, f32 and
+    bf16, S 256, 4/2 heads. Then at the LM training path's shapes, B = each
     rung (2, 4, 8), S 1024, 9/3 heads, head_dim 64, bf16, causal: the
-    forward kernel with its LSE output (as the autograd Function runs it)
-    against the plain forward's (o, lse), and the three backward kernels;
-    all four timed at the top rung. The library yardstick for the backward
-    rows is the backward of ``scaled_dot_product_attention`` at that shape
+    forward kernel with its LSE output (as the autograd Function runs it;
+    the tensor-core route) against the plain forward's (o, lse), and the
+    three backward kernels; all four timed at the top rung, the forward's
+    SIMT kernel beside it. The library yardstick for the backward rows is
+    the backward of ``scaled_dot_product_attention`` at that shape
     (``torch.autograd.grad`` from a saved forward), one time for the three
     rows; for the forward row, its forward."""
     from repro_torch.kernels import flash_attention as fa
@@ -1023,6 +1154,26 @@ def check_flash_bwd(dev, bw, tc_rate):
     log(f"flash_attention backward: {n} variants within tolerance "
         f"(max|err| delta {err['delta']:.3g}, dq {err['dq']:.3g}, dk/dv "
         f"{err['dkv']:.3g})")
+    wide = {"delta": 0.0, "dq": 0.0, "dkv": 0.0}
+    n = 0
+    for D, Dv in ((192, 192), (256, 256), (192, 128)):
+        check(fa.bwd_rows(D, Dv) == 32, "32-row tiles above head dim 128")
+        for dtype in (torch.float32, torch.bfloat16):
+            for variant in ("causal", "window"):
+                kw = dict(causal=True,
+                          window=100 if variant == "window" else 0)
+                ins = _bwd_inputs(2, 256, 4, 2, D, Dv, dtype, dev, gen,
+                                  **kw)
+                got = _bwd_pair(*ins, None, kw,
+                                f"flash bwd {D}/{Dv} {dtype} {variant}")
+                wide = {k: max(wide[k], got[k]) for k in wide}
+                n += 1
+    err = {k: max(err[k], wide[k]) for k in err}
+    log(f"flash_attention backward at head dims (192, 192), (256, 256), "
+        f"(192, 128): {n} variants within tolerance (max|err| delta "
+        f"{wide['delta']:.3g}, dq {wide['dq']:.3g}, dk/dv "
+        f"{wide['dkv']:.3g})")
+    time_wide_heads(dev, gen, bw, tc_rate)
 
     S, H, K, D = 1024, 9, 3, 64
     kw = dict(causal=True, window=0)
@@ -1044,28 +1195,37 @@ def check_flash_bwd(dev, bw, tc_rate):
     # timed at the top rung: the inputs of the loop's last pass
     lib = fa._bwd_lib()
     stream = torch.cuda.current_stream().cuda_stream
-    flib = fa._lib()
+    tc_lib, simt_lib = fa._tc_lib(), fa._lib()
     o_t, lse_t = torch.empty_like(o), torch.empty_like(lse)
+    check(fa.fwd_route(q.dtype, D, D) == "tc", "the training path's route")
 
     def raw_fwd():
-        flib.tri_flash_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), None,
-                           o_t.data_ptr(), lse_t.data_ptr(), 1, B, S, H, K,
-                           D, D, 1, 0, D ** -0.5, stream)
+        tc_lib.tri_flash_fwd_tc(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                                None, o_t.data_ptr(), lse_t.data_ptr(), B,
+                                S, H, K, D, D, 1, 0, D ** -0.5, stream)
+
+    def raw_simt():
+        simt_lib.tri_flash_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                               None, o_t.data_ptr(), lse_t.data_ptr(), 1, B,
+                               S, H, K, D, D, 1, 0, D ** -0.5, stream)
 
     pairs = B * H * S * (S + 1) / 2            # causal pairs this run needs
     e2 = 2                                     # bytes of a bf16 element
     nq, nkv, nl = B * S * H * D * e2, B * S * K * D * e2, B * H * S * 4
     fwd_ms = time_ms(raw_fwd, iters=10)
+    simt_ms = time_ms(raw_simt, iters=10)
     fwd_plain = time_ms(lambda: fa.flash_attention_ref(
         q, k, v, None, with_lse=True, **kw), iters=2, reps=3)
     fwd_lib = time_ms(lambda: _sdpa(q, k, v, is_causal=True), iters=10)
     fb_ms, fby = bound(2 * nq + 2 * nkv + nl, pairs * 4 * D, bw, tc_rate)
     log(f"flash_attention (with LSE) B{B} S{S} H{H}/K{K} D{D} bf16 causal: "
-        f"kernel {fwd_ms:.4f} ms, plain {fwd_plain:.4f} ms, sdpa "
-        f"{fwd_lib:.4f} ms, bound {fb_ms:.5f} ms ({fby})")
+        f"tensor-core kernel {fwd_ms:.4f} ms, SIMT kernel {simt_ms:.4f} ms, "
+        f"plain {fwd_plain:.4f} ms, sdpa {fwd_lib:.4f} ms, bound "
+        f"{fb_ms:.5f} ms ({fby})")
     out = {"flash_attention@lm_train": {
         "max_abs_err": err["fwd"], "ms": fwd_ms, "plain_ms": fwd_plain,
-        "bound_ms": fb_ms, "bound_by": fby, "library_ms": fwd_lib}}
+        "bound_ms": fb_ms, "bound_by": fby, "library_ms": fwd_lib,
+        "fwd_route": "tc"}}
     delta = torch.empty((B, H, S), device=dev)
     dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
     ptr = lambda t: t.data_ptr()          # noqa: E731
@@ -1075,10 +1235,10 @@ def check_flash_bwd(dev, bw, tc_rate):
             ptr(o), ptr(do), ptr(delta), 1, B, S, H, D, stream),
         "dq": lambda: lib.tri_flash_bwd_dq(
             ptr(q), ptr(k), ptr(v), ptr(do), ptr(lse), ptr(delta), None,
-            ptr(dq), *dims, D ** -0.5, stream),
+            ptr(dq), *dims, D ** -0.5, fa.bwd_rows(D, D), stream),
         "dkv": lambda: lib.tri_flash_bwd_dkv(
             ptr(q), ptr(k), ptr(v), ptr(do), ptr(lse), ptr(delta), None,
-            ptr(dk), ptr(dv), *dims, D ** -0.5, stream),
+            ptr(dk), ptr(dv), *dims, D ** -0.5, fa.bwd_rows(D, D), stream),
     }
     plain = {
         "delta": lambda: fa.flash_bwd_delta_ref(o, do),
@@ -1111,19 +1271,59 @@ def check_flash_bwd(dev, bw, tc_rate):
     return out
 
 
+def time_wide_heads(dev, gen, bw, tc_rate, D=256) -> None:
+    """Log-only times at a wide-head shape no main path runs yet (gemma3-4b's
+    head dim 256; B 1, S 1024, 8/4 heads, bf16, causal): the tensor-core
+    forward with LSE, the dQ and dK/dV kernels (32-row tiles), SDPA's
+    forward and backward, and each one's bound."""
+    from repro_torch.kernels import flash_attention as fa
+    B, S, H, K = 1, 1024, 8, 4
+    q, k, v, do, o, lse = _bwd_inputs(B, S, H, K, D, D, torch.bfloat16,
+                                      dev, gen)
+    delta = fa.flash_bwd_delta_ref(o, do)
+    pairs = B * H * S * (S + 1) / 2
+    nq, nkv, nl = B * S * H * D * 2, B * S * K * D * 2, B * H * S * 4
+    qg, kg, vg = (x.detach().requires_grad_(True) for x in (q, k, v))
+    o_lib = _sdpa(qg, kg, vg, is_causal=True)
+    times = {
+        "forward (tensor cores, LSE)": (
+            lambda: fa.flash_attention_cuda(q, k, v, with_lse=True),
+            2 * nq + 2 * nkv + nl, pairs * 4 * D),
+        "dQ (32-row tiles)": (
+            lambda: fa.flash_bwd_dq_cuda(q, k, v, do, lse, delta),
+            3 * nq + 2 * nkv + 2 * nl, pairs * 6 * D),
+        "dK/dV (32-row tiles)": (
+            lambda: fa.flash_bwd_dkv_cuda(q, k, v, do, lse, delta),
+            2 * nq + 4 * nkv + 2 * nl, pairs * 8 * D),
+        "sdpa forward": (lambda: _sdpa(q, k, v, is_causal=True), 0, 0),
+        "sdpa backward": (lambda: torch.autograd.grad(
+            o_lib, (qg, kg, vg), do.transpose(1, 2), retain_graph=True),
+            0, 0),
+    }
+    parts = []
+    for what, (fn, nbytes, nops) in times.items():
+        ms = time_ms(fn, iters=5, reps=3)
+        b = (f", bound {bound(nbytes, nops, bw, tc_rate)[0]:.4f}"
+             if nops else "")
+        parts.append(f"{what} {ms:.4f} ms{b}")
+    log(f"  B{B} S{S} H{H}/K{K} D{D} bf16 causal: " + "; ".join(parts))
+
+
 def check_flash_function(dev):
     """The differentiable ``ops.flash_attention`` (forward kernel with LSE,
     then the three backward kernels) against autograd through the plain
     forward, in f32 on the card: each gradient within 1e-5 of its largest
     magnitude (the CPU parity test measures 4e-7 between the two
-    formulations; the card adds its own summation order)."""
+    formulations; the card adds its own summation order). Head dim 64, and
+    once 256 (the backward's 32-row tiles); f32 takes the SIMT forward."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ops
     gen = torch.Generator(device=dev).manual_seed(9)
     worst, n = 0.0, 0
-    for S, variant in ((256, "causal"), (256, "segments"), (512, "window"),
-                       (1024, "causal")):
-        B, H, K, D = 2, 9, 3, 64
+    for S, variant, D in ((256, "causal", 64), (256, "segments", 64),
+                          (512, "window", 64), (1024, "causal", 64),
+                          (256, "causal", 256)):
+        B, H, K = 2, 9, 3
         seg = _segments(B, S, dev, S + 1) if variant == "segments" else None
         kw = dict(causal=True, window=100 if variant == "window" else 0)
         q, k, v, do = (torch.randn(s, generator=gen, device=dev)
@@ -1133,8 +1333,9 @@ def check_flash_function(dev):
         before = dict(ops.LAUNCHES)
         o = ops.flash_attention(*ins, segments=seg, **kw)
         got = torch.autograd.grad(o, ins, do)
-        for key in ("flash_attention", "flash_attention_bwd_delta",
-                    "flash_attention_bwd_dq", "flash_attention_bwd_dkv"):
+        for key in ("flash_attention", "flash_attention_simt",
+                    "flash_attention_bwd_delta", "flash_attention_bwd_dq",
+                    "flash_attention_bwd_dkv"):
             check(ops.LAUNCHES[key] == before[key] + 1,
                   f"Function launched {key} once")
         want = torch.autograd.grad(
@@ -1142,11 +1343,28 @@ def check_flash_function(dev):
         torch.cuda.synchronize()
         for name, g, w in zip(("dq", "dk", "dv"), got, want):
             gap = float((g - w).abs().max()) / float(w.abs().max())
-            check(gap <= 1e-5, f"Function {S} {variant} {name}: {gap}")
+            check(gap <= 1e-5, f"Function {S} {variant} D{D} {name}: "
+                  f"{gap}")
             worst = max(worst, gap)
         n += 1
     log(f"flash_attention Function: gradients of {n} variants within "
         f"{worst:.3g} of plain autograd (relative to each gradient's max)")
+    # bf16 at head dim 256: the tensor-core forward and the 32-row backward
+    # under autograd, as a wide-head model's training step runs them
+    q, k, v, do = (torch.randn(s, generator=gen, device=dev
+                               ).to(torch.bfloat16)
+                   for s in ((2, 256, 8, 256), (2, 256, 4, 256),
+                             (2, 256, 4, 256), (2, 256, 8, 256)))
+    ins = [x.requires_grad_(True) for x in (q, k, v)]
+    before = dict(ops.LAUNCHES)
+    got = torch.autograd.grad(ops.flash_attention(*ins), ins, do)
+    torch.cuda.synchronize()
+    check(ops.LAUNCHES["flash_attention_tc"] == before["flash_attention_tc"]
+          + 1 and all(bool(torch.isfinite(g).all()) for g in got),
+          "bf16 Function at head dim 256: the tensor-core forward, finite "
+          "gradients")
+    log("flash_attention Function, bf16 at head dim 256: tensor-core "
+        "forward, 32-row backward, finite gradients")
 
 
 def check_decode(dev, bw, tc_rate):
@@ -1411,6 +1629,7 @@ def lm_train_main_path():
           f"{len(lines)} JSON lines")
     check(all(math.isfinite(m["loss"]) for m in lines), f"losses {lines}")
     want = {"flash_attention": 2 * L * steps,
+            "flash_attention_tc": 2 * L * steps, "flash_attention_simt": 0,
             "flash_attention_bwd_delta": L * steps,
             "flash_attention_bwd_dq": L * steps,
             "flash_attention_bwd_dkv": L * steps,
@@ -1478,8 +1697,10 @@ def profile_lm_step(tr) -> None:
     def family(n):
         if "dq_kernel" in n or "dkv_kernel" in n or "delta_kernel" in n:
             return "flash backward (this port's kernels)"
+        if "fwd_tc_kernel" in n:
+            return "flash forward (this port's tensor-core kernel)"
         if "fwd_kernel" in n:
-            return "flash forward (this port's kernel)"
+            return "flash forward (this port's SIMT kernel)"
         if "stats_partials" in n or "apply_kernel" in n \
                 or "reduce_partials" in n:
             return "fused update (this port's kernels)"
@@ -1600,6 +1821,7 @@ def no_triaccel_main_path(bw, f32_ops):
         math.isfinite(m["loss"]) and m["grads_finite"] == 1.0
         for m in tr.metrics_log), f"logged {lines}")
     want = {"flash_attention": 2 * L * steps,
+            "flash_attention_tc": 2 * L * steps,
             "flash_attention_bwd_delta": L * steps,
             "flash_attention_bwd_dq": L * steps,
             "flash_attention_bwd_dkv": L * steps}
@@ -1761,6 +1983,9 @@ def serve_main_path(seed: int = 0):
     check(runs["decode"] == decode_steps + n_warm, f"decodes {runs}")
     check(launches["flash_attention"] == n_layers * runs["admit"],
           f"flash_attention launches {launches} vs {runs}")
+    check(launches["flash_attention_tc"] == launches["flash_attention"]
+          and launches["flash_attention_simt"] == 0,
+          f"every prefill forward on the tensor-core route: {launches}")
     check(launches["flash_decode"] == n_layers * runs["decode"],
           f"flash_decode launches {launches} vs {runs}")
     check(launches["qdq_cast"] == len(_lm_leaves()),
@@ -1789,6 +2014,42 @@ def serve_main_path(seed: int = 0):
     return sess, launches
 
 
+def _serve_family(n):
+    if "decode_kernel" in n:
+        return "flash_decode (this port's kernel)"
+    if "fwd_tc_kernel" in n:
+        return "flash forward (this port's tensor-core kernel)"
+    if "fwd_kernel" in n:
+        return "flash forward (this port's SIMT kernel)"
+    if "qdq" in n:
+        return "qdq_cast (this port's kernel)"
+    if any(w in n for w in ("gemm", "gemv", "nvjet", "xmma", "cutlass",
+                            "sm90", "splitk")):
+        return "matmul (projections, FFN, readout)"
+    if "index" in n:
+        return "cache writes, gathers (index kernels)"
+    if "copy" in n or "memcpy" in n or "memset" in n:
+        return "casts and copies"
+    if "reduce" in n:
+        return "reduction (norms, argmax)"
+    return "elementwise (RoPE, norms, SiLU, residuals)"
+
+
+def profile_prefill(sess) -> None:
+    """Where the prefill's time goes: one serving step that admits four
+    fresh prompts (4 prefills of 1024 tokens through 30 layers, the
+    scatter into the cache, one decode step at rung 4)."""
+    rng = np.random.default_rng(12)
+    for _ in range(4):
+        sess.submit({"tokens": rng.integers(0, sess.task.cfg.vocab_size,
+                                            (sess.cfg.prompt_len,))},
+                    max_new_tokens=2)
+    _profile(sess.step, 1, _serve_family,
+             "1 serving step admitting 4 prompts of "
+             f"{sess.cfg.prompt_len} tokens")
+    sess.run()
+
+
 def profile_decode(sess, steps: int = 5) -> None:
     """Where a decode step's time goes: ``steps`` decode steps at rung 4
     (four fresh requests admitted first)."""
@@ -1800,25 +2061,11 @@ def profile_decode(sess, steps: int = 5) -> None:
     sess.step()              # admits all four, one decode step
     sess.step()
 
-    def family(n):
-        if "decode_kernel" in n:
-            return "flash_decode (this port's kernel)"
-        if any(w in n for w in ("gemm", "gemv", "nvjet", "xmma", "cutlass",
-                                "sm90", "splitk")):
-            return "matmul (projections, FFN, readout)"
-        if "index" in n:
-            return "cache writes, gathers (index kernels)"
-        if "copy" in n or "memcpy" in n or "memset" in n:
-            return "casts and copies"
-        if "reduce" in n:
-            return "reduction (norms, argmax)"
-        return "elementwise (RoPE, norms, SiLU, residuals)"
-
     def run():
         for _ in range(steps):
             sess.step()
 
-    _profile(run, steps, family,
+    _profile(run, steps, _serve_family,
              f"{steps} decode steps at rung {sess.rung} tier {sess.tier}")
     sess.run()
 
@@ -1864,6 +2111,10 @@ def main() -> int:
         log(f"  ptxas {s}: {len(regs)} kernels, at most {max(regs)} "
             f"registers a thread, {spills} bytes of spills, static smem "
             f"at most {max(smem, default=0)} bytes")
+        if s in ("flash_fwd_sm90", "flash_attention_bwd"):
+            for kern, nreg, spill in ptxas_kernels(text):
+                log(f"    {s}: {kern}: {nreg} registers, {spill} bytes of "
+                    "spill stores")
 
     dev = torch.device("cuda")
     t_phase = time.perf_counter()
@@ -1880,7 +2131,7 @@ def main() -> int:
         lm_view, dev, bw, f32_ops, what="smollm-135m", **lm_var)
     del lm_view
     res["qdq_cast"] = check_qdq(dev, bw, f32_ops)
-    res["flash_attention"] = check_flash(dev, bw, tc_ops)
+    res.update(check_flash(dev, bw, f32_ops, tc_ops))
     res["flash_decode"] = check_decode(dev, bw, tc_ops)
     res.update(check_flash_bwd(dev, bw, tc_ops))
     check_flash_function(dev)
@@ -1902,6 +2153,7 @@ def main() -> int:
         launches[k] = serve_launches[k]
     log(f"main paths in {time.perf_counter() - t_phase:.1f} s")
     profile_steps(args.batch0)
+    profile_prefill(sess)
     profile_decode(sess)
     del sess                  # the LM trainer's measured bytes are its own
     gc.collect()
@@ -1930,7 +2182,11 @@ def main() -> int:
     profile_steps(FP32_ARGS["batch0"], method="fp32")
     gc.collect()
     torch.cuda.empty_cache()
-    _, gs_lm = no_triaccel_main_path(bw, f32_ops)
+    nt_launches, gs_lm = no_triaccel_main_path(bw, f32_ops)
+    # the SIMT forward's launches on the three LM paths (each checked 0)
+    launches["flash_attention_simt"] = sum(
+        d["flash_attention_simt"]
+        for d in (serve_launches, lm_launches, nt_launches))
     launches["grad_stats"] = gs_resnet["launches"]
     res["grad_stats"]["max_abs_err"] = max(res["grad_stats"]["max_abs_err"],
                                            gs_resnet["max_abs_err"])

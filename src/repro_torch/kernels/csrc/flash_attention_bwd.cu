@@ -22,26 +22,37 @@
 // (_dq_body over ki, _dkv_body over (r, qi)); here blocks run in no order,
 // so that axis becomes a loop inside the block and each output tile has
 // exactly one owner:
-//   * dQ: one block of 256 threads per (q tile of 64 rows, q head, batch
+//   * dQ: one block of 256 threads per (q tile of BR rows, q head, batch
 //     row). The q tile (pre-scaled, f32), dO, lse and delta stay in shared
-//     memory; the block walks the 64-key tiles of its kv head that
+//     memory; the block walks the BR-key tiles of its kv head that
 //     _block_needed keeps (causal diagonal, window start, segment-range
 //     overlap), recomputes s with the forward's mask, p = exp(s - lse),
 //     dp = dO v^T, ds = p (dp - delta), and accumulates ds k in registers
-//     (4 rows x D/16 columns a thread); dq = acc * scale at the end.
-//   * dK/dV: one block per (k tile of 64 rows, kv head, batch row). K and V
+//     (BR/16 rows x D/16 columns a thread); dq = acc * scale at the end.
+//   * dK/dV: one block per (k tile of BR rows, kv head, batch row). K and V
 //     stay in shared memory; the block loops over the H/K q heads of the
 //     group and their needed q tiles, writes p and ds of each tile pair to
 //     shared memory, and accumulates dv += p^T dO and dk += ds^T (q scale)
-//     in registers (4 key rows x D/16 columns a thread each). Each kv tile
+//     in registers (BR/16 key rows x D/16 columns a thread each). Each kv tile
 //     has one block, so there are no float atomics and sums repeat
 //     bitwise from run to run, as in fused_update.cu.
 //   * delta: one warp per (b, row, head), a shuffle reduction over Dv.
 // Shared-memory rows are padded to D+1 floats so the 16 threads of a half
 // warp read 16 banks (as in the forward). Masked pairs keep the finite
-// NEG_INF = -2e38, so exp(s - lse) is exactly 0 there. The tile is 64
-// rows, the forward's; the masks are elementwise, so only the order of the
-// f32 sums differs from the reference's 256-row tiles.
+// NEG_INF = -2e38, so exp(s - lse) is exactly 0 there. The masks are
+// elementwise, so only the order of the f32 sums differs from the
+// reference's 256-row tiles.
+//
+// Row tile. dQ and dK/dV are templated on BR, the rows of a q tile and of a
+// k tile: 64 where max(D, Dv) <= 128, 32 above (the caller passes it;
+// flash_attention.bwd_rows). A block keeps four (BR, D+1 or Dv+1) f32 tiles
+// and one or two (BR, BR+1) score tiles in shared memory: at D = Dv = 256
+// and 64 rows that is 280,832 B for dQ and 297,472 B for dK/dV, above the
+// 232,448 B a block may use; at 32 rows 136,320 B and 140,544 B. Halving
+// the rows also halves the register accumulators (MI = BR/16 rows a
+// thread): acc[MI][NJ] in dQ, dk_acc and dv_acc in dK/dV, which at NJ = 16
+// columns a thread stay at 32 and 64 floats. Every output tile still has
+// one owner and its sums run in a fixed order: no float atomics.
 //
 // Tolerance against the plain PyTorch versions (flash_attention.py): the
 // sums run in another order and nvcc contracts a*b+c (built without
@@ -56,8 +67,6 @@ namespace {
 
 constexpr int THREADS = 256;
 constexpr int WARPS = THREADS / 32;
-constexpr int BQ = 64;          // query rows a tile
-constexpr int BK = 64;          // keys a tile
 constexpr float NEG_INF = -2.0e38f;
 
 enum DType { F32 = 0, BF16 = 1 };
@@ -96,14 +105,15 @@ struct BwdArgs {
   float scale;
 };
 
-// _block_needed at the 64-row tile: does tile (q0, k0) hold any pair that
+// _block_needed at the BR-row tile: does tile (q0, k0) hold any pair that
 // the mask keeps? `segrow` is the batch row's segment ids (or null).
+template <int BR>
 __device__ __forceinline__ bool tile_needed(const BwdArgs& a, int q0, int k0,
                                             const int* segrow) {
-  if (a.causal && k0 > q0 + BQ - 1) return false;
-  if (a.window > 0 && k0 + BK - 1 < q0 - (a.window - 1)) return false;
-  if (segrow && !(segrow[q0 + BQ - 1] >= segrow[k0] &&
-                  segrow[q0] <= segrow[k0 + BK - 1]))
+  if (a.causal && k0 > q0 + BR - 1) return false;
+  if (a.window > 0 && k0 + BR - 1 < q0 - (a.window - 1)) return false;
+  if (segrow && !(segrow[q0 + BR - 1] >= segrow[k0] &&
+                  segrow[q0] <= segrow[k0 + BR - 1]))
     return false;
   return true;
 }
@@ -119,63 +129,64 @@ __device__ __forceinline__ bool pair_ok(const BwdArgs& a, int qp, int kp,
   return ok;
 }
 
-// Load a (rows x n) tile of head `head` (of `heads`) at sequence row r0 of
+// Load a (BR x n) tile of head `head` (of `heads`) at sequence row r0 of
 // batch row b into shared memory with leading dimension ld, as f32 times
 // `mul`.
-template <typename T>
+template <int BR, typename T>
 __device__ __forceinline__ void load_tile(float* dst, int ld, const T* src,
                                           int b, int r0, int S, int heads,
                                           int head, int n, float mul) {
-  for (int e = threadIdx.x; e < 64 * n; e += THREADS) {
+  for (int e = threadIdx.x; e < BR * n; e += THREADS) {
     const int r = e / n, d = e - r * n;
     dst[r * ld + d] =
         to_f(src[((long)(b * S + r0 + r) * heads + head) * n + d]) * mul;
   }
 }
 
-// s = qs ks^T and dp = dos vs^T for the 4x4 pairs (rows ty+16i, cols
-// tx+16j) of one tile, then p = exp(s - lse) and ds = p (dp - delta) with
-// the tile's mask applied to s.
+// s = qs ks^T and dp = dos vs^T for the MI x MI pairs (rows ty+16i, cols
+// tx+16j) of one (16 MI)-row tile, then p = exp(s - lse) and
+// ds = p (dp - delta) with the tile's mask applied to s.
+template <int MI>
 __device__ __forceinline__ void tile_p_ds(const BwdArgs& a, const float* qs,
                                           const float* dos, const float* ks,
                                           const float* vs, const float* lse_s,
                                           const float* del_s, const int* sq,
                                           const int* sk, int q0, int k0,
-                                          float p[4][4], float ds[4][4]) {
+                                          float p[MI][MI], float ds[MI][MI]) {
   const int D = a.D, Dv = a.Dv, ldd = D + 1, ldv = Dv + 1;
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  float sc[4][4], dp[4][4];
+  float sc[MI][MI], dp[MI][MI];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < MI; ++i)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) sc[i][j] = dp[i][j] = 0.f;
+    for (int j = 0; j < MI; ++j) sc[i][j] = dp[i][j] = 0.f;
   for (int d = 0; d < D; ++d) {
-    float qa[4], kb[4];
+    float qa[MI], kb[MI];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) qa[i] = qs[(ty + 16 * i) * ldd + d];
+    for (int i = 0; i < MI; ++i) qa[i] = qs[(ty + 16 * i) * ldd + d];
 #pragma unroll
-    for (int j = 0; j < 4; ++j) kb[j] = ks[(tx + 16 * j) * ldd + d];
+    for (int j = 0; j < MI; ++j) kb[j] = ks[(tx + 16 * j) * ldd + d];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < MI; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) sc[i][j] += qa[i] * kb[j];
+      for (int j = 0; j < MI; ++j) sc[i][j] += qa[i] * kb[j];
   }
   for (int d = 0; d < Dv; ++d) {
-    float ga[4], vb[4];
+    float ga[MI], vb[MI];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) ga[i] = dos[(ty + 16 * i) * ldv + d];
+    for (int i = 0; i < MI; ++i) ga[i] = dos[(ty + 16 * i) * ldv + d];
 #pragma unroll
-    for (int j = 0; j < 4; ++j) vb[j] = vs[(tx + 16 * j) * ldv + d];
+    for (int j = 0; j < MI; ++j) vb[j] = vs[(tx + 16 * j) * ldv + d];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < MI; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) dp[i][j] += ga[i] * vb[j];
+      for (int j = 0; j < MI; ++j) dp[i][j] += ga[i] * vb[j];
   }
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < MI; ++i) {
     const int r = ty + 16 * i;
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
+    for (int j = 0; j < MI; ++j) {
       const int c = tx + 16 * j;
       const bool ok = pair_ok(a, q0 + r, k0 + c, a.seg ? sq[r] : 0,
                               a.seg ? sk[c] : 0);
@@ -210,25 +221,27 @@ __global__ void __launch_bounds__(THREADS) delta_kernel(
 }
 
 // ---------------------------------------------------------------- dQ ----
-// NJ = column groups of 16 per thread: D <= 16 * NJ
-template <typename T, int NJ>
+// NJ = column groups of 16 per thread: D <= 16 * NJ; BR = rows of a q tile
+// and of a k tile
+template <typename T, int NJ, int BR>
 __global__ void __launch_bounds__(THREADS) dq_kernel(BwdArgs a) {
+  constexpr int MI = BR / 16;            // rows a thread
   extern __shared__ float smem[];
   const int D = a.D, Dv = a.Dv, S = a.S, H = a.H, K = a.K;
   const int ldd = D + 1, ldv = Dv + 1;
-  float* qs = smem;                      // BQ x (D+1), scaled
-  float* dos = qs + BQ * ldd;            // BQ x (Dv+1)
-  float* ks = dos + BQ * ldv;            // BK x (D+1)
-  float* vs = ks + BK * ldd;             // BK x (Dv+1)
-  float* dss = vs + BK * ldv;            // BQ x (BK+1)
-  float* lse_s = dss + BQ * (BK + 1);    // BQ
-  float* del_s = lse_s + BQ;             // BQ
-  int* sq = reinterpret_cast<int*>(del_s + BQ);   // BQ
-  int* sk = sq + BQ;                              // BK
+  float* qs = smem;                      // BR x (D+1), scaled
+  float* dos = qs + BR * ldd;            // BR x (Dv+1)
+  float* ks = dos + BR * ldv;            // BR x (D+1)
+  float* vs = ks + BR * ldd;             // BR x (Dv+1)
+  float* dss = vs + BR * ldv;            // BR x (BR+1)
+  float* lse_s = dss + BR * (BR + 1);    // BR
+  float* del_s = lse_s + BR;             // BR
+  int* sq = reinterpret_cast<int*>(del_s + BR);   // BR
+  int* sk = sq + BR;                              // BR
 
   const int qt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
   const int kh = h / (H / K);
-  const int q0 = qt * BQ;
+  const int q0 = qt * BR;
   const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
   const T* q = static_cast<const T*>(a.q);
   const T* kp = static_cast<const T*>(a.k);
@@ -236,54 +249,54 @@ __global__ void __launch_bounds__(THREADS) dq_kernel(BwdArgs a) {
   const T* gp = static_cast<const T*>(a.dout);
   const int* segrow = a.seg ? a.seg + (long)b * S : nullptr;
 
-  load_tile(qs, ldd, q, b, q0, S, H, h, D, a.scale);
-  load_tile(dos, ldv, gp, b, q0, S, H, h, Dv, 1.f);
-  if (tid < BQ) {
+  load_tile<BR>(qs, ldd, q, b, q0, S, H, h, D, a.scale);
+  load_tile<BR>(dos, ldv, gp, b, q0, S, H, h, Dv, 1.f);
+  if (tid < BR) {
     lse_s[tid] = a.lse[((long)b * H + h) * S + q0 + tid];
     del_s[tid] = a.delta[((long)b * H + h) * S + q0 + tid];
     if (segrow) sq[tid] = segrow[q0 + tid];
   }
-  float acc[4][NJ];
+  float acc[MI][NJ];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < MI; ++i)
 #pragma unroll
     for (int j = 0; j < NJ; ++j) acc[i][j] = 0.f;
 
-  const int nk = S / BK;
-  const int kt_end = a.causal ? min(nk, (q0 + BQ - 1) / BK + 1) : nk;
+  const int nk = S / BR;
+  const int kt_end = a.causal ? min(nk, (q0 + BR - 1) / BR + 1) : nk;
   for (int kt = 0; kt < kt_end; ++kt) {
-    const int k0 = kt * BK;
-    if (!tile_needed(a, q0, k0, segrow)) continue;   // uniform in the block
+    const int k0 = kt * BR;
+    if (!tile_needed<BR>(a, q0, k0, segrow)) continue;   // uniform
     __syncthreads();                  // the previous tile's readers are done
-    load_tile(ks, ldd, kp, b, k0, S, K, kh, D, 1.f);
-    load_tile(vs, ldv, vp, b, k0, S, K, kh, Dv, 1.f);
-    if (segrow && tid < BK) sk[tid] = segrow[k0 + tid];
+    load_tile<BR>(ks, ldd, kp, b, k0, S, K, kh, D, 1.f);
+    load_tile<BR>(vs, ldv, vp, b, k0, S, K, kh, Dv, 1.f);
+    if (segrow && tid < BR) sk[tid] = segrow[k0 + tid];
     __syncthreads();
-    float p[4][4], ds[4][4];
-    tile_p_ds(a, qs, dos, ks, vs, lse_s, del_s, sq, sk, q0, k0, p, ds);
+    float p[MI][MI], ds[MI][MI];
+    tile_p_ds<MI>(a, qs, dos, ks, vs, lse_s, del_s, sq, sk, q0, k0, p, ds);
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < MI; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j)
-        dss[(ty + 16 * i) * (BK + 1) + tx + 16 * j] = ds[i][j];
+      for (int j = 0; j < MI; ++j)
+        dss[(ty + 16 * i) * (BR + 1) + tx + 16 * j] = ds[i][j];
     __syncthreads();
-    for (int kk = 0; kk < BK; ++kk) {
-      float da[4];
+    for (int kk = 0; kk < BR; ++kk) {
+      float da[MI];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) da[i] = dss[(ty + 16 * i) * (BK + 1) + kk];
+      for (int i = 0; i < MI; ++i) da[i] = dss[(ty + 16 * i) * (BR + 1) + kk];
 #pragma unroll
       for (int j = 0; j < NJ; ++j) {
         const int c = tx + 16 * j;
         const float kb = c < D ? ks[kk * ldd + c] : 0.f;
 #pragma unroll
-        for (int i = 0; i < 4; ++i) acc[i][j] += da[i] * kb;
+        for (int i = 0; i < MI; ++i) acc[i][j] += da[i] * kb;
       }
     }
   }
   // s was taken against scale * q, so d/dq carries one more factor
   T* dq = static_cast<T*>(a.dq);
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < MI; ++i) {
     const int r = ty + 16 * i;
 #pragma unroll
     for (int j = 0; j < NJ; ++j) {
@@ -296,26 +309,28 @@ __global__ void __launch_bounds__(THREADS) dq_kernel(BwdArgs a) {
 }
 
 // ------------------------------------------------------------- dK/dV ----
-// NJ = column groups of 16 per thread: max(D, Dv) <= 16 * NJ
-template <typename T, int NJ>
+// NJ = column groups of 16 per thread: max(D, Dv) <= 16 * NJ; BR = rows of
+// a k tile and of a q tile
+template <typename T, int NJ, int BR>
 __global__ void __launch_bounds__(THREADS) dkv_kernel(BwdArgs a) {
+  constexpr int MI = BR / 16;            // key rows a thread
   extern __shared__ float smem[];
   const int D = a.D, Dv = a.Dv, S = a.S, H = a.H, K = a.K;
   const int rep = H / K;
   const int ldd = D + 1, ldv = Dv + 1;
-  float* ks = smem;                      // BK x (D+1)
-  float* vs = ks + BK * ldd;             // BK x (Dv+1)
-  float* qs = vs + BK * ldv;             // BQ x (D+1), scaled
-  float* dos = qs + BQ * ldd;            // BQ x (Dv+1)
-  float* ps = dos + BQ * ldv;            // BQ x (BK+1)
-  float* dss = ps + BQ * (BK + 1);       // BQ x (BK+1)
-  float* lse_s = dss + BQ * (BK + 1);    // BQ
-  float* del_s = lse_s + BQ;             // BQ
-  int* sq = reinterpret_cast<int*>(del_s + BQ);   // BQ
-  int* sk = sq + BQ;                              // BK
+  float* ks = smem;                      // BR x (D+1)
+  float* vs = ks + BR * ldd;             // BR x (Dv+1)
+  float* qs = vs + BR * ldv;             // BR x (D+1), scaled
+  float* dos = qs + BR * ldd;            // BR x (Dv+1)
+  float* ps = dos + BR * ldv;            // BR x (BR+1)
+  float* dss = ps + BR * (BR + 1);       // BR x (BR+1)
+  float* lse_s = dss + BR * (BR + 1);    // BR
+  float* del_s = lse_s + BR;             // BR
+  int* sq = reinterpret_cast<int*>(del_s + BR);   // BR
+  int* sk = sq + BR;                              // BR
 
   const int kt = blockIdx.x, g = blockIdx.y, b = blockIdx.z;
-  const int k0 = kt * BK;
+  const int k0 = kt * BR;
   const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
   const T* q = static_cast<const T*>(a.q);
   const T* kp = static_cast<const T*>(a.k);
@@ -323,49 +338,49 @@ __global__ void __launch_bounds__(THREADS) dkv_kernel(BwdArgs a) {
   const T* gp = static_cast<const T*>(a.dout);
   const int* segrow = a.seg ? a.seg + (long)b * S : nullptr;
 
-  load_tile(ks, ldd, kp, b, k0, S, K, g, D, 1.f);
-  load_tile(vs, ldv, vp, b, k0, S, K, g, Dv, 1.f);
-  if (segrow && tid < BK) sk[tid] = segrow[k0 + tid];
+  load_tile<BR>(ks, ldd, kp, b, k0, S, K, g, D, 1.f);
+  load_tile<BR>(vs, ldv, vp, b, k0, S, K, g, Dv, 1.f);
+  if (segrow && tid < BR) sk[tid] = segrow[k0 + tid];
   // accumulators: key rows ty+16i, columns tx+16j
-  float dk_acc[4][NJ], dv_acc[4][NJ];
+  float dk_acc[MI][NJ], dv_acc[MI][NJ];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < MI; ++i)
 #pragma unroll
     for (int j = 0; j < NJ; ++j) dk_acc[i][j] = dv_acc[i][j] = 0.f;
 
-  const int nq = S / BQ;
-  const int qt_begin = a.causal ? k0 / BQ : 0;
+  const int nq = S / BR;
+  const int qt_begin = a.causal ? k0 / BR : 0;
   for (int r = 0; r < rep; ++r) {
     const int h = g * rep + r;
     for (int qt = qt_begin; qt < nq; ++qt) {
-      const int q0 = qt * BQ;
-      if (!tile_needed(a, q0, k0, segrow)) continue;   // uniform
+      const int q0 = qt * BR;
+      if (!tile_needed<BR>(a, q0, k0, segrow)) continue;   // uniform
       __syncthreads();                // the previous tile's readers are done
-      load_tile(qs, ldd, q, b, q0, S, H, h, D, a.scale);
-      load_tile(dos, ldv, gp, b, q0, S, H, h, Dv, 1.f);
-      if (tid < BQ) {
+      load_tile<BR>(qs, ldd, q, b, q0, S, H, h, D, a.scale);
+      load_tile<BR>(dos, ldv, gp, b, q0, S, H, h, Dv, 1.f);
+      if (tid < BR) {
         lse_s[tid] = a.lse[((long)b * H + h) * S + q0 + tid];
         del_s[tid] = a.delta[((long)b * H + h) * S + q0 + tid];
         if (segrow) sq[tid] = segrow[q0 + tid];
       }
       __syncthreads();
-      float p[4][4], ds[4][4];
-      tile_p_ds(a, qs, dos, ks, vs, lse_s, del_s, sq, sk, q0, k0, p, ds);
+      float p[MI][MI], ds[MI][MI];
+      tile_p_ds<MI>(a, qs, dos, ks, vs, lse_s, del_s, sq, sk, q0, k0, p, ds);
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < MI; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int e = (ty + 16 * i) * (BK + 1) + tx + 16 * j;
+        for (int j = 0; j < MI; ++j) {
+          const int e = (ty + 16 * i) * (BR + 1) + tx + 16 * j;
           ps[e] = p[i][j];
           dss[e] = ds[i][j];
         }
       __syncthreads();
-      for (int rr = 0; rr < BQ; ++rr) {
-        float pa[4], da[4];
+      for (int rr = 0; rr < BR; ++rr) {
+        float pa[MI], da[MI];
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          pa[i] = ps[rr * (BK + 1) + ty + 16 * i];
-          da[i] = dss[rr * (BK + 1) + ty + 16 * i];
+        for (int i = 0; i < MI; ++i) {
+          pa[i] = ps[rr * (BR + 1) + ty + 16 * i];
+          da[i] = dss[rr * (BR + 1) + ty + 16 * i];
         }
 #pragma unroll
         for (int j = 0; j < NJ; ++j) {
@@ -373,7 +388,7 @@ __global__ void __launch_bounds__(THREADS) dkv_kernel(BwdArgs a) {
           const float gb = c < Dv ? dos[rr * ldv + c] : 0.f;
           const float qb = c < D ? qs[rr * ldd + c] : 0.f;
 #pragma unroll
-          for (int i = 0; i < 4; ++i) {
+          for (int i = 0; i < MI; ++i) {
             dv_acc[i][j] += pa[i] * gb;
             dk_acc[i][j] += da[i] * qb;   // q pre-scaled: dk is done
           }
@@ -384,7 +399,7 @@ __global__ void __launch_bounds__(THREADS) dkv_kernel(BwdArgs a) {
   T* dk = static_cast<T*>(a.dk);
   T* dv = static_cast<T*>(a.dv);
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < MI; ++i) {
     const long row = (long)(b * S + k0 + ty + 16 * i) * K + g;
 #pragma unroll
     for (int j = 0; j < NJ; ++j) {
@@ -395,16 +410,17 @@ __global__ void __launch_bounds__(THREADS) dkv_kernel(BwdArgs a) {
   }
 }
 
-size_t dq_smem(int D, int Dv) {
-  return sizeof(float) * (2 * BQ * (D + 1) + 2 * BQ * (Dv + 1) +
-                          BQ * (BK + 1) + 2 * BQ) +
-         sizeof(int) * (BQ + BK);
+// dynamic shared memory of a block; flash_attention.bwd_smem mirrors these
+size_t dq_smem(int D, int Dv, int BR) {
+  return sizeof(float) * (2 * BR * (D + 1) + 2 * BR * (Dv + 1) +
+                          BR * (BR + 1) + 2 * BR) +
+         sizeof(int) * (2 * BR);
 }
 
-size_t dkv_smem(int D, int Dv) {
-  return sizeof(float) * (2 * BQ * (D + 1) + 2 * BQ * (Dv + 1) +
-                          2 * BQ * (BK + 1) + 2 * BQ) +
-         sizeof(int) * (BQ + BK);
+size_t dkv_smem(int D, int Dv, int BR) {
+  return sizeof(float) * (2 * BR * (D + 1) + 2 * BR * (Dv + 1) +
+                          2 * BR * (BR + 1) + 2 * BR) +
+         sizeof(int) * (2 * BR);
 }
 
 template <typename Kern>
@@ -417,26 +433,47 @@ int launch(Kern kern, size_t smem, dim3 grid, const BwdArgs& a,
   return (int)cudaGetLastError();
 }
 
+// 64-row tiles take NJ in {1, 2, 4, 8} (head dims up to 128), 32-row
+// tiles NJ in {4, 8, 12, 16} (up to 256)
 template <typename T>
-int dq_dispatch(const BwdArgs& a, int B, cudaStream_t st) {
-  const dim3 grid(a.S / BQ, a.H, B);
-  const size_t smem = dq_smem(a.D, a.Dv);
+int dq_dispatch(const BwdArgs& a, int B, int rows, cudaStream_t st) {
+  const dim3 grid(a.S / rows, a.H, B);
+  const size_t smem = dq_smem(a.D, a.Dv, rows);
   const int nj = (a.D + 15) / 16;
-  if (nj <= 1) return launch(dq_kernel<T, 1>, smem, grid, a, st);
-  if (nj <= 2) return launch(dq_kernel<T, 2>, smem, grid, a, st);
-  if (nj <= 4) return launch(dq_kernel<T, 4>, smem, grid, a, st);
-  return launch(dq_kernel<T, 8>, smem, grid, a, st);
+  if (rows == 64) {
+    if (nj <= 1) return launch(dq_kernel<T, 1, 64>, smem, grid, a, st);
+    if (nj <= 2) return launch(dq_kernel<T, 2, 64>, smem, grid, a, st);
+    if (nj <= 4) return launch(dq_kernel<T, 4, 64>, smem, grid, a, st);
+    if (nj <= 8) return launch(dq_kernel<T, 8, 64>, smem, grid, a, st);
+    return (int)cudaErrorInvalidValue;
+  }
+  if (nj <= 4) return launch(dq_kernel<T, 4, 32>, smem, grid, a, st);
+  if (nj <= 8) return launch(dq_kernel<T, 8, 32>, smem, grid, a, st);
+  if (nj <= 12) return launch(dq_kernel<T, 12, 32>, smem, grid, a, st);
+  return launch(dq_kernel<T, 16, 32>, smem, grid, a, st);
 }
 
 template <typename T>
-int dkv_dispatch(const BwdArgs& a, int B, cudaStream_t st) {
-  const dim3 grid(a.S / BK, a.K, B);
-  const size_t smem = dkv_smem(a.D, a.Dv);
+int dkv_dispatch(const BwdArgs& a, int B, int rows, cudaStream_t st) {
+  const dim3 grid(a.S / rows, a.K, B);
+  const size_t smem = dkv_smem(a.D, a.Dv, rows);
   const int nj = ((a.D > a.Dv ? a.D : a.Dv) + 15) / 16;
-  if (nj <= 1) return launch(dkv_kernel<T, 1>, smem, grid, a, st);
-  if (nj <= 2) return launch(dkv_kernel<T, 2>, smem, grid, a, st);
-  if (nj <= 4) return launch(dkv_kernel<T, 4>, smem, grid, a, st);
-  return launch(dkv_kernel<T, 8>, smem, grid, a, st);
+  if (rows == 64) {
+    if (nj <= 1) return launch(dkv_kernel<T, 1, 64>, smem, grid, a, st);
+    if (nj <= 2) return launch(dkv_kernel<T, 2, 64>, smem, grid, a, st);
+    if (nj <= 4) return launch(dkv_kernel<T, 4, 64>, smem, grid, a, st);
+    if (nj <= 8) return launch(dkv_kernel<T, 8, 64>, smem, grid, a, st);
+    return (int)cudaErrorInvalidValue;
+  }
+  if (nj <= 4) return launch(dkv_kernel<T, 4, 32>, smem, grid, a, st);
+  if (nj <= 8) return launch(dkv_kernel<T, 8, 32>, smem, grid, a, st);
+  if (nj <= 12) return launch(dkv_kernel<T, 12, 32>, smem, grid, a, st);
+  return launch(dkv_kernel<T, 16, 32>, smem, grid, a, st);
+}
+
+bool bad_dims(int S, int H, int K, int D, int Dv, int rows) {
+  return (rows != 32 && rows != 64) || S % rows || K < 1 || H % K ||
+         D < 1 || Dv < 1 || D > 256 || Dv > 256;
 }
 
 }  // namespace
@@ -464,17 +501,19 @@ int tri_flash_bwd_delta(const void* o, const void* dout, float* delta,
 
 // q (B,S,H,D), k (B,S,K,D), v (B,S,K,Dv), dout (B,S,H,Dv), dq (B,S,H,D),
 // all of `dtype`; lse, delta (B,H,S) f32; seg (B,S) int32 or null.
-// S % 64 == 0, H % K == 0, D <= 128, Dv <= 128.
+// `rows` is the row tile, 64 (max(D, Dv) <= 128) or 32; S % rows == 0,
+// H % K == 0, D <= 256, Dv <= 256.
 int tri_flash_bwd_dq(const void* q, const void* k, const void* v,
                      const void* dout, const float* lse, const float* delta,
                      const int* seg, void* dq, int dtype, int B, int S, int H,
                      int K, int D, int Dv, int causal, int window,
-                     float scale, void* stream) {
+                     float scale, int rows, void* stream) {
+  if (bad_dims(S, H, K, D, Dv, rows)) return (int)cudaErrorInvalidValue;
   BwdArgs a{q,  k,    v,       dout, lse, delta, seg, dq, nullptr, nullptr,
             S,  H,    K,       D,    Dv,  causal, window, scale};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == F32) return dq_dispatch<float>(a, B, st);
-  return dq_dispatch<__nv_bfloat16>(a, B, st);
+  if (dtype == F32) return dq_dispatch<float>(a, B, rows, st);
+  return dq_dispatch<__nv_bfloat16>(a, B, rows, st);
 }
 
 // as tri_flash_bwd_dq, writing dk (B,S,K,D) and dv (B,S,K,Dv) of `dtype`
@@ -482,12 +521,13 @@ int tri_flash_bwd_dkv(const void* q, const void* k, const void* v,
                       const void* dout, const float* lse, const float* delta,
                       const int* seg, void* dk, void* dv, int dtype, int B,
                       int S, int H, int K, int D, int Dv, int causal,
-                      int window, float scale, void* stream) {
+                      int window, float scale, int rows, void* stream) {
+  if (bad_dims(S, H, K, D, Dv, rows)) return (int)cudaErrorInvalidValue;
   BwdArgs a{q, k, v,  dout, lse, delta,  seg,    nullptr, dk, dv,
             S, H, K,  D,    Dv,  causal, window, scale};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == F32) return dkv_dispatch<float>(a, B, st);
-  return dkv_dispatch<__nv_bfloat16>(a, B, st);
+  if (dtype == F32) return dkv_dispatch<float>(a, B, rows, st);
+  return dkv_dispatch<__nv_bfloat16>(a, B, rows, st);
 }
 
 }  // extern "C"

@@ -3,8 +3,9 @@ segments, optional LSE residual), its backward (delta, dQ, dK/dV from the
 saved LSE) and the ragged single-token decode.
 
 Two forms of each: the hand-written CUDA kernels for Hopper
-(``csrc/flash_attention.cu`` and ``csrc/flash_attention_bwd.cu``, bound
-through ``ctypes``: ``*_cuda``) and their plain PyTorch versions
+(``csrc/flash_fwd_sm90.cu``, ``csrc/flash_attention.cu`` and
+``csrc/flash_attention_bwd.cu``, bound through ``ctypes``: ``*_cuda``) and
+their plain PyTorch versions
 (``*_ref``), which mirror ``repro/kernels/ref.py`` (full softmax with the
 finite ``NEG_INF``) and, for the backward, the math of the reference's
 Pallas backward over full (S, S) matrices in f32. ``kernels.ops`` routes a
@@ -18,9 +19,16 @@ A row of length 0 gives zeros, as the reference kernel's
 ``l = max(l, 1e-30)`` clamp gives (the reference's full-softmax oracle
 would average V there; the kernels are what the JAX package runs).
 
+The forward has two kernels, and ``fwd_route`` picks one from the dtype
+and the head dims alone: bf16 with D and Dv multiples of 16 up to 256 runs
+the tensor-core kernel (``flash_fwd_sm90.cu``: wgmma, TMA), everything
+else the f32 SIMT kernel (``flash_attention.cu``). A launch or build error
+raises; nothing switches route on a failure.
+
 ``BQ``, ``BK`` and ``DECODE_BLOCKS`` are the reference's tile sizes. The
 port keeps them for its gates, so it takes a kernel exactly where the
-reference does; the CUDA kernels tile by 64 inside.
+reference does; the CUDA kernels tile by 64 inside (the backward by 32
+above head dim 128, ``bwd_rows``).
 """
 from __future__ import annotations
 
@@ -41,8 +49,37 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 #: the CUDA kernels' query tile (rows a block); S must be a multiple
 CUDA_BQ = 64
 MAX_HEAD_DIM = 256
-#: the backward kernels keep four (64, D+1) f32 tiles in shared memory
-BWD_MAX_HEAD_DIM = 128
+#: the backward kernels take every head dim the forward takes
+BWD_MAX_HEAD_DIM = MAX_HEAD_DIM
+#: dynamic shared memory a block may use on the H100
+SMEM_LIMIT = 232_448
+
+
+def fwd_route(dtype, D: int, Dv: int) -> str:
+    """Which forward kernel a CUDA call runs: "tc" (``flash_fwd_sm90.cu``,
+    bf16 tensor cores) for bf16 with D and Dv multiples of 16 in [16, 256],
+    else "simt" (``flash_attention.cu``, f32 on the CUDA cores)."""
+    if dtype == torch.bfloat16 and all(
+            d % 16 == 0 and 16 <= d <= MAX_HEAD_DIM for d in (D, Dv)):
+        return "tc"
+    return "simt"
+
+
+def bwd_rows(D: int, Dv: int) -> int:
+    """Row tile of the dQ and dK/dV kernels: 64 up to head dim 128, 32
+    above, so that their shared-memory tiles fit (``bwd_smem``)."""
+    return 64 if max(D, Dv) <= 128 else 32
+
+
+def bwd_smem(kernel: str, D: int, Dv: int, rows: int) -> int:
+    """Dynamic shared memory of a dQ ("dq") or dK/dV ("dkv") block, bytes:
+    ``dq_smem`` / ``dkv_smem`` of ``flash_attention_bwd.cu``. Four
+    (rows, D+1 or Dv+1) f32 tiles, one (dQ) or two (dK/dV) (rows, rows+1)
+    score tiles, the rows' lse and delta, two int32 segment rows."""
+    scores = {"dq": 1, "dkv": 2}[kernel]
+    floats = (2 * rows * (D + 1) + 2 * rows * (Dv + 1)
+              + scores * rows * (rows + 1) + 2 * rows)
+    return 4 * floats + 4 * 2 * rows
 
 
 def decode_block(L: int) -> Optional[int]:
@@ -204,14 +241,22 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
+def _tc_lib() -> ctypes.CDLL:
+    lib = _build.load("flash_fwd_sm90")
+    if lib.tri_flash_fwd_tc.argtypes is None:  # first use: declare the ABI
+        lib.tri_flash_fwd_tc.argtypes = [_P] * 6 + [_I] * 8 + [_F, _P]
+        lib.tri_flash_fwd_tc.restype = _I
+    return lib
+
+
 def _bwd_lib() -> ctypes.CDLL:
     lib = _build.load("flash_attention_bwd")
     if lib.tri_flash_bwd_dq.argtypes is None:  # first use: declare the ABI
         lib.tri_flash_bwd_delta.argtypes = [_P] * 3 + [_I] * 5 + [_P]
         lib.tri_flash_bwd_delta.restype = _I
-        lib.tri_flash_bwd_dq.argtypes = [_P] * 8 + [_I] * 9 + [_F, _P]
+        lib.tri_flash_bwd_dq.argtypes = [_P] * 8 + [_I] * 9 + [_F, _I, _P]
         lib.tri_flash_bwd_dq.restype = _I
-        lib.tri_flash_bwd_dkv.argtypes = [_P] * 9 + [_I] * 9 + [_F, _P]
+        lib.tri_flash_bwd_dkv.argtypes = [_P] * 9 + [_I] * 9 + [_F, _I, _P]
         lib.tri_flash_bwd_dkv.restype = _I
     return lib
 
@@ -248,9 +293,10 @@ def _raise_on(rc: int, what: str) -> None:
 def flash_attention_cuda(q, k, v, segments=None, *, causal: bool = True,
                          window: int = 0, scale: Optional[float] = None,
                          with_lse: bool = False):
-    """The forward kernel -> o (and the (B, H, S) f32 LSE with
-    ``with_lse``); outputs are fresh tensors."""
+    """The forward kernel ``fwd_route`` picks -> o (and the (B, H, S) f32
+    LSE with ``with_lse``); outputs are fresh tensors."""
     B, S, H, K, D, Dv = _dims(q, k, v)
+    route = fwd_route(q.dtype, D, Dv)
     if S % CUDA_BQ:
         raise ValueError(f"seq len {S} not a multiple of {CUDA_BQ}")
     _check(q, "q", q.dtype, (B, S, H, D))
@@ -269,16 +315,21 @@ def flash_attention_cuda(q, k, v, segments=None, *, causal: bool = True,
     o = torch.empty((B, S, H, Dv), dtype=q.dtype, device=dev)
     lse = (torch.empty((B, H, S), dtype=torch.float32, device=dev)
            if with_lse else None)
-    lib = _lib()
+    seg_p = seg.data_ptr() if seg is not None else None
+    lse_p = lse.data_ptr() if lse is not None else None
+    dims = (B, S, H, K, D, Dv, int(bool(causal)), int(window or 0),
+            float(scale))
     with torch.cuda.device(dev):
-        rc = lib.tri_flash_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            seg.data_ptr() if seg is not None else None, o.data_ptr(),
-            lse.data_ptr() if lse is not None else None,
-            _DTYPE_CODE[q.dtype], B, S, H, K, D, Dv, int(bool(causal)),
-            int(window or 0), float(scale),
-            torch.cuda.current_stream(dev).cuda_stream)
-    _raise_on(rc, "flash_attention")
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        if route == "tc":
+            rc = _tc_lib().tri_flash_fwd_tc(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), seg_p,
+                o.data_ptr(), lse_p, *dims, stream)
+        else:
+            rc = _lib().tri_flash_fwd(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), seg_p,
+                o.data_ptr(), lse_p, _DTYPE_CODE[q.dtype], *dims, stream)
+    _raise_on(rc, f"flash_attention ({route})")
     return (o, lse) if with_lse else o
 
 
@@ -287,6 +338,8 @@ def flash_bwd_delta_cuda(o, do):
     if o.dtype not in _DTYPE_CODE:
         raise ValueError(f"o: dtype {o.dtype} not in {tuple(_DTYPE_CODE)}")
     B, S, H, Dv = o.shape
+    if Dv > MAX_HEAD_DIM:
+        raise ValueError(f"head dim {Dv} above {MAX_HEAD_DIM}")
     _check(o, "o", o.dtype, (B, S, H, Dv))
     _check(do, "do", o.dtype, (B, S, H, Dv))
     if do.device != o.device:
@@ -307,9 +360,6 @@ def _bwd_args(q, k, v, do, lse, delta, segments):
     B, S, H, K, D, Dv = _dims(q, k, v)
     if S % CUDA_BQ:
         raise ValueError(f"seq len {S} not a multiple of {CUDA_BQ}")
-    if D > BWD_MAX_HEAD_DIM or Dv > BWD_MAX_HEAD_DIM:
-        raise ValueError(f"head dims ({D}, {Dv}) above the backward "
-                         f"kernels' {BWD_MAX_HEAD_DIM}")
     _check(q, "q", q.dtype, (B, S, H, D))
     _check(k, "k", q.dtype, (B, S, K, D))
     _check(v, "v", q.dtype, (B, S, K, Dv))
@@ -340,7 +390,7 @@ def flash_bwd_dq_cuda(q, k, v, do, lse, delta, segments=None, *,
             lse.data_ptr(), delta.data_ptr(),
             seg.data_ptr() if seg is not None else None, dq.data_ptr(),
             _DTYPE_CODE[q.dtype], B, S, H, K, D, Dv, int(bool(causal)),
-            int(window or 0), float(scale),
+            int(window or 0), float(scale), bwd_rows(D, Dv),
             torch.cuda.current_stream(q.device).cuda_stream)
     _raise_on(rc, "flash_bwd_dq")
     return dq
@@ -361,7 +411,7 @@ def flash_bwd_dkv_cuda(q, k, v, do, lse, delta, segments=None, *,
             seg.data_ptr() if seg is not None else None, dk.data_ptr(),
             dv.data_ptr(), _DTYPE_CODE[q.dtype], B, S, H, K, D, Dv,
             int(bool(causal)), int(window or 0), float(scale),
-            torch.cuda.current_stream(q.device).cuda_stream)
+            bwd_rows(D, Dv), torch.cuda.current_stream(q.device).cuda_stream)
     _raise_on(rc, "flash_bwd_dkv")
     return dk, dv
 

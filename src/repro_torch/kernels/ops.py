@@ -6,6 +6,8 @@ tensor goes to the hand-written CUDA kernel, or the call raises. Nothing
 falls back on a missing card. Each wrapper counts its kernel launches in
 ``LAUNCHES`` (a plain integer per kernel, bumped only where the kernel is
 launched), so a run can show that the main path went through the kernels.
+The flash forward also counts by route (``flash_attention_tc``,
+``flash_attention_simt``: ``flash_attention.fwd_route``) beside its total.
 
 The attention gates are the reference's, constants included (``BQ = BK =
 256``, ``DECODE_BLOCKS``): where a gate fails, the call runs the chunked or
@@ -36,6 +38,7 @@ from repro_torch.kernels import qdq_cast as _qc
 #: kernel name -> launches since the last ``reset_launches()``
 LAUNCHES = {"fused_stats": 0, "fused_apply": 0, "qdq_cast": 0,
             "grad_stats": 0, "flash_attention": 0,
+            "flash_attention_tc": 0, "flash_attention_simt": 0,
             "flash_attention_bwd_delta": 0,
             "flash_attention_bwd_dq": 0, "flash_attention_bwd_dkv": 0,
             "flash_decode": 0}
@@ -198,7 +201,9 @@ def _flash_kernel(q, k, v, segments, causal, window, scale,
                                    v.contiguous(), segments, causal=causal,
                                    window=window, scale=scale,
                                    with_lse=with_lse)
+    route = _fa.fwd_route(q.dtype, q.shape[-1], v.shape[-1])
     LAUNCHES["flash_attention"] += 1
+    LAUNCHES[f"flash_attention_{route}"] += 1
     return out
 
 

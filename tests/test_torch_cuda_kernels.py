@@ -172,3 +172,64 @@ def test_flash_function_gradient_matches_plain_autograd(card, variant):
     want = torch.autograd.grad(fa.flash_attention_ref(*ins, seg), ins, do)
     for a, b in zip(got, want):
         assert float((a - b).abs().max()) <= 1e-5 * float(b.abs().max())
+
+
+WIDE = [(128, 128), (192, 192), (256, 256), (192, 128)]
+
+
+@pytest.mark.parametrize("dtype,route", [(torch.bfloat16, "tc"),
+                                         (torch.float32, "simt")])
+@pytest.mark.parametrize("dims", WIDE, ids=lambda d: f"{d[0]}-{d[1]}")
+def test_flash_forward_wide_heads_both_routes(card, dims, dtype, route):
+    """Both forward kernels at head dims 128-256 (bf16 takes the
+    tensor-core kernel, f32 the SIMT kernel; GQA rep 2; causal and
+    windowed) against the plain version."""
+    g = torch.Generator(device=card).manual_seed(5)
+    (D, Dv), (B, S, H, K) = dims, (2, 256, 4, 2)
+    assert fa.fwd_route(dtype, D, Dv) == route
+    q, k, v = (torch.randn(s, generator=g, device=card).to(dtype)
+               for s in ((B, S, H, D), (B, S, K, D), (B, S, K, Dv)))
+    for window in (0, 100):
+        o, lse = fa.flash_attention_cuda(q, k, v, with_lse=True,
+                                         window=window)
+        o_r, lse_r = fa.flash_attention_ref(q, k, v, with_lse=True,
+                                            window=window)
+        assert _close(o, o_r)
+        assert float((lse - lse_r).abs().max()) <= 1e-5 * (
+            1 + float(lse_r.abs().max()))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dims", WIDE[1:], ids=lambda d: f"{d[0]}-{d[1]}")
+def test_flash_backward_kernels_wide_heads(card, dims, dtype):
+    """dQ and dK/dV at head dims above 128 (32-row tiles) against their
+    plain versions on the plain forward's residuals."""
+    g = torch.Generator(device=card).manual_seed(6)
+    (D, Dv), (B, S, H, K) = dims, (2, 256, 4, 2)
+    q, k, v, do = (torch.randn(s, generator=g, device=card).to(dtype)
+                   for s in ((B, S, H, D), (B, S, K, D), (B, S, K, Dv),
+                             (B, S, H, Dv)))
+    for window in (0, 100):
+        kw = dict(causal=True, window=window)
+        o, lse = fa.flash_attention_ref(q, k, v, with_lse=True, **kw)
+        delta = fa.flash_bwd_delta_ref(o, do)
+        assert _close(fa.flash_bwd_dq_cuda(q, k, v, do, lse, delta, **kw),
+                      fa.flash_bwd_dq_ref(q, k, v, do, lse, delta, **kw))
+        got = fa.flash_bwd_dkv_cuda(q, k, v, do, lse, delta, **kw)
+        want = fa.flash_bwd_dkv_ref(q, k, v, do, lse, delta, **kw)
+        assert all(_close(a, b) for a, b in zip(got, want))
+
+
+def test_flash_forward_counts_launches_by_route(card):
+    """``ops.flash_attention`` counts each forward launch in its total and
+    under its route: bf16 at head dim 64 the tensor-core kernel, f32 the
+    SIMT kernel."""
+    g = torch.Generator(device=card).manual_seed(7)
+    x = torch.randn((1, 256, 2, 64), generator=g, device=card)
+    for dtype, route in ((torch.bfloat16, "tc"), (torch.float32, "simt")):
+        before = dict(ops.LAUNCHES)
+        ops.flash_attention(x.to(dtype), x.to(dtype), x.to(dtype))
+        grew = {k: ops.LAUNCHES[k] - before[k] for k in before
+                if ops.LAUNCHES[k] != before[k]}
+        assert grew == {"flash_attention": 1,
+                        f"flash_attention_{route}": 1}

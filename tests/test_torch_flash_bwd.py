@@ -172,8 +172,11 @@ def test_flash_fallback_pins_the_chunked_path_without_warning():
 
 
 def test_backward_kernels_refuse_cpu_tensors_and_wide_heads():
-    """The CUDA wrappers take CUDA tensors only, and head dims the shared
-    memory holds; nothing falls back."""
+    """The CUDA wrappers take CUDA tensors only; nothing falls back. Head
+    dims up to 256 reach the device check (the dQ and dK/dV kernels take
+    them: their row tile drops to 32 above head dim 128); above 256 the
+    forward and every backward wrapper refuse the head dim before they
+    look at the device."""
     q, k, v, do, _, _ = _inputs(CASES[0])
     qt, kt, vt, dot = (torch.from_numpy(x) for x in (q, k, v, do))
     lse = torch.zeros((B, K, S))
@@ -181,6 +184,20 @@ def test_backward_kernels_refuse_cpu_tensors_and_wide_heads():
         fa.flash_bwd_delta_cuda(qt, dot)
     with pytest.raises(ValueError, match="CUDA tensor"):
         fa.flash_bwd_dq_cuda(qt, kt, vt, dot, lse, lse)
+    assert fa.BWD_MAX_HEAD_DIM == fa.MAX_HEAD_DIM == 256
     wide = torch.zeros((B, S, K, 192))
-    with pytest.raises(ValueError, match="backward"):
-        fa.flash_bwd_dkv_cuda(wide, wide, wide, wide, lse, lse)
+    for fn in (fa.flash_bwd_dq_cuda, fa.flash_bwd_dkv_cuda):
+        with pytest.raises(ValueError, match="CUDA tensor"):
+            fn(wide, wide, wide, wide, lse, lse)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        fa.flash_bwd_delta_cuda(wide, wide)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        fa.flash_attention_cuda(wide, wide, wide)
+    over = torch.zeros((B, S, K, 272))
+    with pytest.raises(ValueError, match="above 256"):
+        fa.flash_attention_cuda(over, over, over)
+    with pytest.raises(ValueError, match="above 256"):
+        fa.flash_bwd_delta_cuda(over, over)
+    for fn in (fa.flash_bwd_dq_cuda, fa.flash_bwd_dkv_cuda):
+        with pytest.raises(ValueError, match="above 256"):
+            fn(over, over, over, over, lse, lse)
