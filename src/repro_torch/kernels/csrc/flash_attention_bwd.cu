@@ -13,10 +13,11 @@
 // flops an element: bound by bytes. dQ does three (64 x 64 x D) products a
 // needed tile pair (s = q k^T, dp = dO v^T, ds k), dK/dV four (s, dp,
 // p^T dO, ds^T q), against a few bytes a row: far above the H100's ~295
-// flops a byte, bound by arithmetic. Like the forward, these first kernels
-// compute in f32 on the CUDA cores (no tensor cores yet: wgmma/TMA come
-// later), so their real ceiling is the f32 SIMT rate, some 15x below the
-// bf16 tensor-core bound that bound_ms states.
+// flops a byte, bound by arithmetic. These kernels compute in f32 on the
+// CUDA cores, so their real ceiling is the f32 SIMT rate, some 15x below the
+// bf16 tensor-core bound. bf16 calls at head dims the tensor cores take
+// run dQ and dK/dV of flash_bwd_sm90.cu instead (flash_attention.bwd_route);
+// these serve f32 and the other head dims, and delta serves every call.
 //
 // Design. The TPU kernels carry accumulators across a sequential grid axis
 // (_dq_body over ki, _dkv_body over (r, qi)); here blocks run in no order,

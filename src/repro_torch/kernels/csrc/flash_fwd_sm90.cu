@@ -30,7 +30,9 @@
 //     is zero-filled by the TMA (out of bounds), which adds 0 to both
 //     products. The maps are encoded on the host through
 //     cuTensorMapEncodeTiled, reached with cudaGetDriverEntryPoint (no
-//     -lcuda), and passed as __grid_constant__ parameters.
+//     -lcuda), and passed as __grid_constant__ parameters. These pieces,
+//     the descriptors and the wgmma/mbarrier wrappers live in sm90.cuh,
+//     shared with the backward (flash_bwd_sm90.cu).
 //   * S = Q K^T: D/16 wgmma m64n64k16 from shared memory (both operands
 //     K-major, 128-byte swizzle descriptors matching the TMA's), f32
 //     accumulators in registers (32 a thread: rows lane/4 and lane/4 + 8 of
@@ -61,22 +63,16 @@
 // sums run in another order on the tensor cores, P V carries the hi/lo
 // split's ~2^-17 relative error: ~1e-5 of the largest magnitude, plus one
 // bf16 ulp of the output (flash_attention.tolerance).
-#include <cuda.h>
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "sm90.cuh"
 
 namespace {
 
-constexpr int BM = 64;                 // query rows a block
-constexpr int BN = 64;                 // keys a tile
-constexpr int BOX = 64;                // bf16 columns a 128-byte row holds
-constexpr int BOX_BYTES = 64 * 128;    // one 64 x 64 bf16 box
+constexpr int BM = TILE;               // query rows a block
+constexpr int BN = TILE;               // keys a tile
 constexpr int STAGES = 2;              // k/v ring depth
 constexpr int CONSUMERS = 128;         // one warpgroup
 constexpr int THREADS = CONSUMERS + 32;   // and one producer warp
 constexpr float NEG_INF = -2.0e38f;
-constexpr float LN2 = 0.693147180559945309f;
 
 struct Params {
   const int* seg;          // (B, S) int32 or null
@@ -85,152 +81,6 @@ struct Params {
   int S, H, K, D, Dv, causal, window;
   float scale_log2;        // scale * log2(e)
 };
-
-// --------------------------------------------------------- primitives ---
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_u32(bar)),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
-          smem_u32(bar)),
-      "r"(bytes)
-      : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(smem_u32(bar))
-               : "memory");
-}
-
-// spin until the phase of parity `parity` of the barrier has completed
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  const uint32_t addr = smem_u32(bar);
-  uint32_t done = 0;
-  while (!done) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(addr), "r"(parity)
-        : "memory");
-  }
-}
-
-// one 4-D box of the tensor map into shared memory, completing on `bar`
-__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
-                                         uint64_t* bar, int c0, int c1,
-                                         int c2, int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
-      "r"(c1), "r"(c2), "r"(c3)
-      : "memory");
-}
-
-// wgmma shared-memory descriptor, 128-byte swizzle (layout type 1). K-major
-// tiles (q, k): rows of 128 bytes, 8-row groups 1024 bytes apart (SBO); a
-// k step of 16 moves the start 32 bytes. MN-major tiles (v): the same rows
-// read as 64 N-values of one k; 8 k-rows a 1024-byte group (SBO); LBO would
-// step between 64-wide N groups, which a 64-wide product does not use.
-__device__ __forceinline__ uint64_t sw128_desc(const void* p) {
-  return (uint64_t)((smem_u32(p) & 0x3FFFF) >> 4) |
-         ((uint64_t)(16 >> 4) << 16) | ((uint64_t)(1024 >> 4) << 32) |
-         ((uint64_t)1 << 62);
-}
-
-__device__ __forceinline__ void wg_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wg_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wg_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-// keep the compiler from moving reads or writes of accumulator registers
-// across a wgmma issue or wait
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-
-// d (64 x 64 f32, 32 a thread) += A (64 x 16, smem) * B (16 x 64, smem),
-// both K-major (trans 0); `accumulate` 0 overwrites d
-__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
-                                             uint64_t db, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "%32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(accumulate));
-}
-
-// d (64 x 64 f32) += A (64 x 16 bf16, registers) * B (16 x 64, smem,
-// MN-major: trans-b 1)
-__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
-                                             const uint32_t (&a)[4],
-                                             uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// _block_needed at the 64-row tile: does tile (q0, k0) hold a kept pair?
-__device__ __forceinline__ bool tile_needed(const Params& p, const int* segrow,
-                                            int q0, int k0) {
-  if (p.causal && k0 > q0 + BM - 1) return false;
-  if (p.window > 0 && k0 + BN - 1 < q0 - (p.window - 1)) return false;
-  if (segrow && !(segrow[q0 + BM - 1] >= segrow[k0] &&
-                  segrow[q0] <= segrow[k0 + BN - 1]))
-    return false;
-  return true;
-}
-
-// does tile (q0, k0) hold a masked pair? (else every pair is kept)
-__device__ __forceinline__ bool tile_masked(const Params& p, const int* segrow,
-                                            int q0, int k0) {
-  if (p.causal && k0 + BN - 1 > q0) return true;
-  if (p.window > 0 && (q0 + BM - 1) - k0 >= p.window) return true;
-  if (segrow && !(segrow[q0] == segrow[q0 + BM - 1] &&
-                  segrow[k0] == segrow[k0 + BN - 1] &&
-                  segrow[q0] == segrow[k0]))
-    return true;
-  return false;
-}
 
 // ------------------------------------------------------------- kernel ---
 // NV = 64-column chunks of V (Dv <= 64 * NV); q/k take ceil(D/64) chunks.
@@ -284,7 +134,7 @@ __global__ void __launch_bounds__(THREADS, NV == 1 ? 3 : (NV == 2 ? 2 : 1))
     uint32_t phase = 0;
     for (int kt = kt_begin; kt < kt_end; ++kt) {
       const int k0 = kt * BN;
-      if (!tile_needed(p, segrow, q0, k0)) continue;
+      if (!tile_needed(p.causal, p.window, segrow, q0, k0)) continue;
       mbar_wait(&empty[stage], phase ^ 1);   // the first round passes
       mbar_expect_tx(&full[stage], (NQ + NV) * BOX_BYTES);
       for (int c = 0; c < NQ; ++c)
@@ -323,7 +173,8 @@ __global__ void __launch_bounds__(THREADS, NV == 1 ? 3 : (NV == 2 ? 2 : 1))
   uint32_t phase = 0;
   for (int kt = kt_begin; kt < kt_end; ++kt) {
     const int k0 = kt * BN;
-    if (!tile_needed(p, segrow, q0, k0)) continue;   // uniform
+    if (!tile_needed(p.causal, p.window, segrow, q0, k0))   // uniform
+      continue;
     mbar_wait(&full[stage], phase);
     const uint8_t* k_t = k_s + stage * NQ * BOX_BYTES;
     const uint8_t* v_t = v_s + stage * NV * BOX_BYTES;
@@ -331,17 +182,15 @@ __global__ void __launch_bounds__(THREADS, NV == 1 ? 3 : (NV == 2 ? 2 : 1))
     // S = Q K^T over the head dim, 16 at a time
     float s[32];
     wg_fence();
-    for (int ks = 0; ks < ksteps; ++ks) {
-      const int off = (ks >> 2) * BOX_BYTES + (ks & 3) * 32;
-      wgmma_ss_n64(s, sw128_desc(q_s + off), sw128_desc(k_t + off), ks > 0);
-    }
+    for (int ks = 0; ks < ksteps; ++ks)
+      wgmma_ss(s, kmajor_desc(q_s, ks), kmajor_desc(k_t, ks), ks > 0);
     wg_commit();
     wg_wait_all();
     fence_regs(s);
 
 #pragma unroll
     for (int i = 0; i < 32; ++i) s[i] *= p.scale_log2;
-    if (tile_masked(p, segrow, q0, k0)) {             // uniform
+    if (tile_masked(p.causal, p.window, segrow, q0, k0)) {   // uniform
 #pragma unroll
       for (int j = 0; j < 8; ++j)
 #pragma unroll
@@ -405,26 +254,15 @@ __global__ void __launch_bounds__(THREADS, NV == 1 ? 3 : (NV == 2 ? 2 : 1))
         o[c][4 * j + 3] *= corr1;
       }
 
-    // P as bf16 hi + lo A fragments: k step kk holds keys 16kk..16kk+15,
-    // the S accumulator's column blocks 2kk and 2kk+1
+    // P as bf16 hi + lo A fragments
     uint32_t ph[4][4], pl[4][4];
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk)
-#pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        const float a = s[8 * kk + 2 * r], c = s[8 * kk + 2 * r + 1];
-        const __nv_bfloat16 ah = __float2bfloat16_rn(a);
-        const __nv_bfloat16 ch = __float2bfloat16_rn(c);
-        ph[kk][r] = pack_bf16(__bfloat162float(ah), __bfloat162float(ch));
-        pl[kk][r] = pack_bf16(a - __bfloat162float(ah),
-                              c - __bfloat162float(ch));
-      }
+    frag_hilo(s, ph, pl);
     wg_fence();
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk)
 #pragma unroll
       for (int c = 0; c < NV; ++c) {
-        const uint64_t dv = sw128_desc(v_t + c * BOX_BYTES + kk * 2048);
+        const uint64_t dv = mnmajor_desc(v_t, c, kk);
         wgmma_rs_n64(o[c], ph[kk], dv);
         wgmma_rs_n64(o[c], pl[kk], dv);
       }
@@ -472,52 +310,6 @@ __global__ void __launch_bounds__(THREADS, NV == 1 ? 3 : (NV == 2 ? 2 : 1))
 }
 
 // ------------------------------------------------------------- host -----
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                void*, const cuuint64_t*, const cuuint64_t*,
-                                const cuuint32_t*, const cuuint32_t*,
-                                CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-EncodeTiled encoder() {
-  static EncodeTiled fn = nullptr;
-  if (!fn) {
-    void* ptr = nullptr;
-    cudaDriverEntryPointQueryResult res;
-#if CUDART_VERSION >= 12050
-    cudaError_t e = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault, &res);
-#else
-    cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr,
-                                            cudaEnableDefault, &res);
-#endif
-    if (e == cudaSuccess && res == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(ptr);
-  }
-  return fn;
-}
-
-// 4-D map over a contiguous (B, S, heads, dim) bf16 tensor, innermost
-// first: (dim, heads, S, B); box 64 x 1 x 64 x 1 with 128-byte swizzle
-int encode(CUtensorMap* map, const void* base, int B, int S, int heads,
-           int dim) {
-  EncodeTiled fn = encoder();
-  if (!fn) return -1;
-  const cuuint64_t dims[4] = {(cuuint64_t)dim, (cuuint64_t)heads,
-                              (cuuint64_t)S, (cuuint64_t)B};
-  const cuuint64_t strides[3] = {(cuuint64_t)dim * 2,
-                                 (cuuint64_t)heads * dim * 2,
-                                 (cuuint64_t)S * heads * dim * 2};
-  const cuuint32_t box[4] = {BOX, 1, BN, 1};
-  const cuuint32_t elem[4] = {1, 1, 1, 1};
-  CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
-                  const_cast<void*>(base), dims, strides, box, elem,
-                  CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                  CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                  CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : -(100 + (int)r);
-}
-
 size_t fwd_tc_smem(int D, int NV) {
   const int NQ = (D + BOX - 1) / BOX;
   return 1024 + (size_t)BOX_BYTES * (NQ + STAGES * NQ + STAGES * NV) +
@@ -550,8 +342,7 @@ int tri_flash_fwd_tc(const void* q, const void* k, const void* v,
                      const int* seg, void* o, float* lse, int B, int S, int H,
                      int K, int D, int Dv, int causal, int window, float scale,
                      void* stream) {
-  if (S % BM || K < 1 || H % K || D % 16 || Dv % 16 || D < 16 || Dv < 16 ||
-      D > 256 || Dv > 256)
+  if (S % BM || K < 1 || H % K || !tc_head_dim(D) || !tc_head_dim(Dv))
     return (int)cudaErrorInvalidValue;
   CUtensorMap tq, tk, tv;
   int rc = encode(&tq, q, B, S, H, D);
@@ -559,7 +350,7 @@ int tri_flash_fwd_tc(const void* q, const void* k, const void* v,
   if (!rc) rc = encode(&tv, v, B, S, K, Dv);
   if (rc) return rc;
   Params p{seg, static_cast<__nv_bfloat16*>(o), lse, S, H, K, D, Dv, causal,
-           window, scale * 1.44269504088896341f};
+           window, scale * LOG2E};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch ((Dv + BOX - 1) / BOX) {
     case 1: return launch<1>(tq, tk, tv, p, B, st);

@@ -22,13 +22,16 @@ would average V there; the kernels are what the JAX package runs).
 The forward has two kernels, and ``fwd_route`` picks one from the dtype
 and the head dims alone: bf16 with D and Dv multiples of 16 up to 256 runs
 the tensor-core kernel (``flash_fwd_sm90.cu``: wgmma, TMA), everything
-else the f32 SIMT kernel (``flash_attention.cu``). A launch or build error
-raises; nothing switches route on a failure.
+else the f32 SIMT kernel (``flash_attention.cu``). The backward's dQ and
+dK/dV do the same through ``bwd_route`` (the same rule): the tensor-core
+kernels of ``flash_bwd_sm90.cu`` or the SIMT kernels of
+``flash_attention_bwd.cu``, which also hold delta on every route. A
+launch or build error raises; nothing switches route on a failure.
 
 ``BQ``, ``BK`` and ``DECODE_BLOCKS`` are the reference's tile sizes. The
 port keeps them for its gates, so it takes a kernel exactly where the
-reference does; the CUDA kernels tile by 64 inside (the backward by 32
-above head dim 128, ``bwd_rows``).
+reference does; the CUDA kernels tile by 64 inside (the SIMT backward by
+32 above head dim 128, ``bwd_rows``).
 """
 from __future__ import annotations
 
@@ -65,8 +68,16 @@ def fwd_route(dtype, D: int, Dv: int) -> str:
     return "simt"
 
 
+def bwd_route(dtype, D: int, Dv: int) -> str:
+    """Which dQ and dK/dV kernels a CUDA call runs, by ``fwd_route``'s rule:
+    "tc" (``flash_bwd_sm90.cu``, bf16 tensor cores) for bf16 with D and Dv
+    multiples of 16 in [16, 256], else "simt" (``flash_attention_bwd.cu``,
+    f32 on the CUDA cores)."""
+    return fwd_route(dtype, D, Dv)
+
+
 def bwd_rows(D: int, Dv: int) -> int:
-    """Row tile of the dQ and dK/dV kernels: 64 up to head dim 128, 32
+    """Row tile of the SIMT dQ and dK/dV kernels: 64 up to head dim 128, 32
     above, so that their shared-memory tiles fit (``bwd_smem``)."""
     return 64 if max(D, Dv) <= 128 else 32
 
@@ -80,6 +91,23 @@ def bwd_smem(kernel: str, D: int, Dv: int, rows: int) -> int:
     floats = (2 * rows * (D + 1) + 2 * rows * (Dv + 1)
               + scores * rows * (rows + 1) + 2 * rows)
     return 4 * floats + 4 * 2 * rows
+
+
+#: 64 x 64 bf16 box of the tensor-core kernels, and their ring depth
+TC_BOX_BYTES, TC_STAGES = 64 * 128, 2
+
+
+def bwd_tc_smem(kernel: str, D: int, Dv: int) -> int:
+    """Dynamic shared memory of a tensor-core dQ ("dq") or dK/dV ("dkv")
+    block, bytes: ``dq_tc_smem`` / ``dkv_tc_smem`` of
+    ``flash_bwd_sm90.cu``. 1024 bytes of alignment slack, the block's own
+    tiles and two ring stages of 64 x 64 bf16 boxes (ceil(D/64) +
+    ceil(Dv/64) a tile), the mbarriers, and for dK/dV two stages of lse and
+    delta rows."""
+    boxes = -(-D // 64) + -(-Dv // 64)
+    size = 1024 + TC_BOX_BYTES * (1 + TC_STAGES) * boxes + 8 * (2 * TC_STAGES
+                                                                 + 1)
+    return size + ({"dq": 0, "dkv": 4 * 2 * TC_STAGES * 64}[kernel])
 
 
 def decode_block(L: int) -> Optional[int]:
@@ -249,6 +277,16 @@ def _tc_lib() -> ctypes.CDLL:
     return lib
 
 
+def _tc_bwd_lib() -> ctypes.CDLL:
+    lib = _build.load("flash_bwd_sm90")
+    if lib.tri_flash_bwd_dq_tc.argtypes is None:   # first use: the ABI
+        lib.tri_flash_bwd_dq_tc.argtypes = [_P] * 8 + [_I] * 8 + [_F, _P]
+        lib.tri_flash_bwd_dq_tc.restype = _I
+        lib.tri_flash_bwd_dkv_tc.argtypes = [_P] * 9 + [_I] * 8 + [_F, _P]
+        lib.tri_flash_bwd_dkv_tc.restype = _I
+    return lib
+
+
 def _bwd_lib() -> ctypes.CDLL:
     lib = _build.load("flash_attention_bwd")
     if lib.tri_flash_bwd_dq.argtypes is None:  # first use: declare the ABI
@@ -379,40 +417,53 @@ def _bwd_args(q, k, v, do, lse, delta, segments):
 def flash_bwd_dq_cuda(q, k, v, do, lse, delta, segments=None, *,
                       causal: bool = True, window: int = 0,
                       scale: Optional[float] = None):
-    """The dQ kernel -> dq (B, S, H, D) in q's dtype, a fresh tensor."""
+    """The dQ kernel ``bwd_route`` picks -> dq (B, S, H, D) in q's dtype, a
+    fresh tensor."""
     (B, S, H, K, D, Dv), seg = _bwd_args(q, k, v, do, lse, delta, segments)
+    route = bwd_route(q.dtype, D, Dv)
     if scale is None:
         scale = D ** -0.5
     dq = torch.empty_like(q)
+    ins = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+           lse.data_ptr(), delta.data_ptr(),
+           seg.data_ptr() if seg is not None else None, dq.data_ptr())
+    dims = (B, S, H, K, D, Dv, int(bool(causal)), int(window or 0),
+            float(scale))
     with torch.cuda.device(q.device):
-        rc = _bwd_lib().tri_flash_bwd_dq(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-            lse.data_ptr(), delta.data_ptr(),
-            seg.data_ptr() if seg is not None else None, dq.data_ptr(),
-            _DTYPE_CODE[q.dtype], B, S, H, K, D, Dv, int(bool(causal)),
-            int(window or 0), float(scale), bwd_rows(D, Dv),
-            torch.cuda.current_stream(q.device).cuda_stream)
-    _raise_on(rc, "flash_bwd_dq")
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        if route == "tc":
+            rc = _tc_bwd_lib().tri_flash_bwd_dq_tc(*ins, *dims, stream)
+        else:
+            rc = _bwd_lib().tri_flash_bwd_dq(
+                *ins, _DTYPE_CODE[q.dtype], *dims, bwd_rows(D, Dv), stream)
+    _raise_on(rc, f"flash_bwd_dq ({route})")
     return dq
 
 
 def flash_bwd_dkv_cuda(q, k, v, do, lse, delta, segments=None, *,
                        causal: bool = True, window: int = 0,
                        scale: Optional[float] = None):
-    """The dK/dV kernel -> (dk, dv) in k's / v's dtype, fresh tensors."""
+    """The dK/dV kernel ``bwd_route`` picks -> (dk, dv) in k's / v's dtype,
+    fresh tensors."""
     (B, S, H, K, D, Dv), seg = _bwd_args(q, k, v, do, lse, delta, segments)
+    route = bwd_route(q.dtype, D, Dv)
     if scale is None:
         scale = D ** -0.5
     dk, dv = torch.empty_like(k), torch.empty_like(v)
+    ins = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+           lse.data_ptr(), delta.data_ptr(),
+           seg.data_ptr() if seg is not None else None, dk.data_ptr(),
+           dv.data_ptr())
+    dims = (B, S, H, K, D, Dv, int(bool(causal)), int(window or 0),
+            float(scale))
     with torch.cuda.device(q.device):
-        rc = _bwd_lib().tri_flash_bwd_dkv(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-            lse.data_ptr(), delta.data_ptr(),
-            seg.data_ptr() if seg is not None else None, dk.data_ptr(),
-            dv.data_ptr(), _DTYPE_CODE[q.dtype], B, S, H, K, D, Dv,
-            int(bool(causal)), int(window or 0), float(scale),
-            bwd_rows(D, Dv), torch.cuda.current_stream(q.device).cuda_stream)
-    _raise_on(rc, "flash_bwd_dkv")
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        if route == "tc":
+            rc = _tc_bwd_lib().tri_flash_bwd_dkv_tc(*ins, *dims, stream)
+        else:
+            rc = _bwd_lib().tri_flash_bwd_dkv(
+                *ins, _DTYPE_CODE[q.dtype], *dims, bwd_rows(D, Dv), stream)
+    _raise_on(rc, f"flash_bwd_dkv ({route})")
     return dk, dv
 
 

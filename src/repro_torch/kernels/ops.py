@@ -7,7 +7,10 @@ falls back on a missing card. Each wrapper counts its kernel launches in
 ``LAUNCHES`` (a plain integer per kernel, bumped only where the kernel is
 launched), so a run can show that the main path went through the kernels.
 The flash forward also counts by route (``flash_attention_tc``,
-``flash_attention_simt``: ``flash_attention.fwd_route``) beside its total.
+``flash_attention_simt``: ``flash_attention.fwd_route``) beside its total,
+and so do the backward's dQ and dK/dV (``flash_attention_bwd_dq_tc`` /
+``_simt``, ``flash_attention_bwd_dkv_tc`` / ``_simt``:
+``flash_attention.bwd_route``).
 
 The attention gates are the reference's, constants included (``BQ = BK =
 256``, ``DECODE_BLOCKS``): where a gate fails, the call runs the chunked or
@@ -41,6 +44,9 @@ LAUNCHES = {"fused_stats": 0, "fused_apply": 0, "qdq_cast": 0,
             "flash_attention_tc": 0, "flash_attention_simt": 0,
             "flash_attention_bwd_delta": 0,
             "flash_attention_bwd_dq": 0, "flash_attention_bwd_dkv": 0,
+            "flash_attention_bwd_dq_tc": 0, "flash_attention_bwd_dq_simt": 0,
+            "flash_attention_bwd_dkv_tc": 0,
+            "flash_attention_bwd_dkv_simt": 0,
             "flash_decode": 0}
 #: fallback reasons already warned about (one warning per reason)
 WARNED_FALLBACKS: set = set()
@@ -216,6 +222,12 @@ def flash_bwd_delta(o, do):
     return out
 
 
+def _count_bwd(name, q, v) -> None:
+    route = _fa.bwd_route(q.dtype, q.shape[-1], v.shape[-1])
+    LAUNCHES[name] += 1
+    LAUNCHES[f"{name}_{route}"] += 1
+
+
 def flash_bwd_dq(q, k, v, do, lse, delta, segments=None, *, causal=True,
                  window=0, scale=None):
     """dq (B, S, H, D) from the saved residuals, dO and delta."""
@@ -223,7 +235,7 @@ def flash_bwd_dq(q, k, v, do, lse, delta, segments=None, *, causal=True,
     if q.device.type == "cpu":
         return _fa.flash_bwd_dq_ref(q, k, v, do, lse, delta, segments, **kw)
     out = _fa.flash_bwd_dq_cuda(q, k, v, do, lse, delta, segments, **kw)
-    LAUNCHES["flash_attention_bwd_dq"] += 1
+    _count_bwd("flash_attention_bwd_dq", q, v)
     return out
 
 
@@ -234,7 +246,7 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, segments=None, *, causal=True,
     if q.device.type == "cpu":
         return _fa.flash_bwd_dkv_ref(q, k, v, do, lse, delta, segments, **kw)
     out = _fa.flash_bwd_dkv_cuda(q, k, v, do, lse, delta, segments, **kw)
-    LAUNCHES["flash_attention_bwd_dkv"] += 1
+    _count_bwd("flash_attention_bwd_dkv", q, v)
     return out
 
 

@@ -9,7 +9,8 @@ Tolerances as in ``chip_smoke.py``: qdq_cast bitwise (NaN equal to NaN);
 grad_stats' absmax bitwise, its sums within 2^-20 of the sum of the
 terms' magnitudes of an f64 sum, non-finite inputs in the same class, two
 launches bitwise equal;
-the attention kernels, forward and backward, within
+the attention kernels, forward and backward (bf16 on the tensor-core
+routes, f32 on the SIMT ones), within
 ``flash_attention.tolerance`` (in f32 1e-5 of the tensor's largest
 magnitude plus 1e-5 relative, in bf16 one bf16 ulp more); the
 differentiable ``ops.flash_attention`` within 1e-5 of each gradient's
@@ -218,6 +219,54 @@ def test_flash_backward_kernels_wide_heads(card, dims, dtype):
         got = fa.flash_bwd_dkv_cuda(q, k, v, do, lse, delta, **kw)
         want = fa.flash_bwd_dkv_ref(q, k, v, do, lse, delta, **kw)
         assert all(_close(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.parametrize("hk", [(4, 2), (9, 3)], ids=["rep2", "rep3"])
+@pytest.mark.parametrize("variant", ["causal", "noncausal", "window",
+                                     "segments"])
+def test_flash_backward_tc_kernels_match_plain(card, variant, hk):
+    """The tensor-core dQ and dK/dV (bf16, ``bwd_route`` "tc") against
+    their plain versions on the plain forward's residuals, over the four
+    masks and GQA rep 2 and 3, head dim 64."""
+    g = torch.Generator(device=card).manual_seed(8)
+    (H, K), (B, S, D) = hk, (2, 256, 64)
+    assert fa.bwd_route(torch.bfloat16, D, D) == "tc"
+    q, k, v, do = (torch.randn(s, generator=g, device=card).to(torch.bfloat16)
+                   for s in ((B, S, H, D), (B, S, K, D), (B, S, K, D),
+                             (B, S, H, D)))
+    seg = _seg(card, B, S) if variant == "segments" else None
+    kw = dict(causal=variant != "noncausal",
+              window=100 if variant == "window" else 0)
+    o, lse = fa.flash_attention_ref(q, k, v, seg, with_lse=True, **kw)
+    delta = fa.flash_bwd_delta_ref(o, do)
+    assert _close(fa.flash_bwd_dq_cuda(q, k, v, do, lse, delta, seg, **kw),
+                  fa.flash_bwd_dq_ref(q, k, v, do, lse, delta, seg, **kw))
+    got = fa.flash_bwd_dkv_cuda(q, k, v, do, lse, delta, seg, **kw)
+    want = fa.flash_bwd_dkv_ref(q, k, v, do, lse, delta, seg, **kw)
+    assert all(_close(a, b) for a, b in zip(got, want))
+
+
+def test_flash_backward_counts_launches_by_route(card):
+    """``ops.flash_bwd_dq`` / ``flash_bwd_dkv`` count each launch in their
+    totals and under their route: bf16 at head dim 64 the tensor-core
+    kernels, f32 the SIMT kernels."""
+    g = torch.Generator(device=card).manual_seed(9)
+    B, S, H, K, D = 1, 256, 2, 1, 64
+    for dtype, route in ((torch.bfloat16, "tc"), (torch.float32, "simt")):
+        q, k, v, do = (torch.randn(s, generator=g, device=card).to(dtype)
+                       for s in ((B, S, H, D), (B, S, K, D), (B, S, K, D),
+                                 (B, S, H, D)))
+        o, lse = fa.flash_attention_ref(q, k, v, with_lse=True)
+        delta = fa.flash_bwd_delta_ref(o, do)
+        before = dict(ops.LAUNCHES)
+        ops.flash_bwd_dq(q, k, v, do, lse, delta)
+        ops.flash_bwd_dkv(q, k, v, do, lse, delta)
+        grew = {k_: ops.LAUNCHES[k_] - before[k_] for k_ in before
+                if ops.LAUNCHES[k_] != before[k_]}
+        assert grew == {"flash_attention_bwd_dq": 1,
+                        f"flash_attention_bwd_dq_{route}": 1,
+                        "flash_attention_bwd_dkv": 1,
+                        f"flash_attention_bwd_dkv_{route}": 1}
 
 
 def test_flash_forward_counts_launches_by_route(card):
