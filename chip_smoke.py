@@ -31,8 +31,15 @@ Phases (any failure raises and the script exits non-zero):
          shapes; both timed at the serving
          prefill's shape (B 1, S 1024) beside SDPA, the SIMT kernel also
          in f32, its route's type;
-       - flash_decode over ragged lengths (0, 1, L, between) and at the
-         main path's decode (4 rows against a 2048-slot cache);
+       - flash_decode (the split-key kernel, a cluster of
+         ``DECODE_CLUSTER`` blocks a row and kv head) over ragged lengths
+         (0, 1, L, between, and the split's edges), head dims (16, 64,
+         (64, 32), (256, 256), (20, 36)), rep 1 and rep * Dv 2048, B 1, 2,
+         4 at L 2048, f32 and bf16, and at the main path's decode (4 rows
+         against a 2048-slot cache; a bitwise repeat; cluster sizes 4, 8,
+         16 timed, log only);
+       - delta over Dv 16, 36, 40, 64, 128, 256 (f32 and bf16) and at the
+         LM rungs, each call repeated bitwise;
        - the three flash backward kernels (delta, dQ, dK/dV), both routes
          (``flash_attention.bwd_route``: bf16 takes the tensor-core dQ and
          dK/dV, f32 the SIMT ones) over every variant, at the wide head
@@ -104,7 +111,11 @@ main path launches it), timed in f32. The backward's dQ and dK/dV rows
 carry ``bwd_route`` the same way: ``flash_attention_bwd_dq`` and
 ``flash_attention_bwd_dkv`` are the tensor-core kernels the LM paths run,
 ``flash_attention_bwd_dq_simt`` and ``flash_attention_bwd_dkv_simt`` the
-SIMT kernels of f32 callers, timed in f32.
+SIMT kernels of f32 callers, timed in f32. The ``flash_decode`` and
+``flash_attention_bwd_delta`` rows also carry ``device_ms``, the kernel's
+device time from the profiler (``device_ms``; ``flash_decode`` also SDPA's,
+``library_device_ms``): their ``ms``, from CUDA events over back-to-back
+launches, can include the card's waits for the host's launches.
 
 The last three lines are the ``kernels`` JSON line, the card's name and
 power limit, and ``{"ok": true, "device": {...}}``. Without a card (or
@@ -154,7 +165,7 @@ KERNELS = {
     "flash_attention_bwd_dkv_simt": (
         f"{CSRC}/flash_attention_bwd.cu",
         "src/repro/kernels/flash_attention.py:441"),
-    "flash_decode": (f"{CSRC}/flash_attention.cu",
+    "flash_decode": (f"{CSRC}/flash_decode_sm90.cu",
                      "src/repro/kernels/flash_attention.py:546"),
     "grad_stats": (f"{CSRC}/grad_stats.cu",
                    "src/repro/kernels/grad_stats.py:52"),
@@ -246,6 +257,29 @@ def time_ms(fn, iters: int = 20, reps: int = 5) -> float:
         b.synchronize()
         out.append(a.elapsed_time(b) / iters)
     return statistics.median(out)
+
+
+def device_ms(fn, iters: int = 50) -> float:
+    """Device time of one ``fn()`` call: the summed durations of the
+    kernels (and copies) that ``torch.profiler`` records on the card over
+    ``iters`` calls, after a warm-up, over ``iters``. Unlike ``time_ms``
+    it leaves out the gaps where the card waits for the host's launches,
+    which a kernel of a few microseconds can be shorter than."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    cuda = torch.autograd.DeviceType.CUDA
+    for _ in range(3):      # a trace that came back empty is taken again
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(e.time_range.end - e.time_range.start
+                 for e in prof.events() if e.device_type == cuda)
+        if us > 0:
+            return us / iters / 1e3
+    raise RuntimeError("check failed: the profiler recorded no device time")
 
 
 def same(a: torch.Tensor, b: torch.Tensor) -> bool:
@@ -1269,9 +1303,11 @@ def check_flash_bwd(dev, bw, f32_ops, tc_rate):
     ptr = lambda t: t.data_ptr()          # noqa: E731
     dims = (B, S, H, K, D, D, 1, 0, D ** -0.5)
     ins = (ptr(q), ptr(k), ptr(v), ptr(do), ptr(lse), ptr(delta), None)
+    dgeo = fa.delta_geometry(H, D, 2)
     raw = {
         "delta": lambda: lib.tri_flash_bwd_delta(
-            ptr(o), ptr(do), ptr(delta), 1, B, S, H, D, stream),
+            ptr(o), ptr(do), ptr(delta), 1, B, S, H, D, dgeo.ts, dgeo.lpr,
+            stream),
         "dq": lambda: tc_bwd.tri_flash_bwd_dq_tc(*ins, ptr(dq), *dims,
                                                  stream),
         "dkv": lambda: tc_bwd.tri_flash_bwd_dkv_tc(*ins, ptr(dk), ptr(dv),
@@ -1301,6 +1337,9 @@ def check_flash_bwd(dev, bw, f32_ops, tc_rate):
         simt = (f", SIMT kernel on the same bf16 inputs "
                 f"{time_ms(simt_bf16[key], iters=5):.4f} ms"
                 if key in simt_bf16 else "")
+        if key == "delta":
+            dev_ms = device_ms(raw[key])
+            simt += f", device time (profiler) {dev_ms:.5f} ms"
         log(f"{name} B{B} S{S} H{H}/K{K} D{D} bf16 causal: kernel "
             f"{ms:.4f} ms{simt}, plain {plain_ms:.4f} ms, bound {b_ms:.5f} "
             f"ms ({by}), max|err| {e:.3g}")
@@ -1308,6 +1347,8 @@ def check_flash_bwd(dev, bw, f32_ops, tc_rate):
                      "bound_ms": b_ms, "bound_by": by, "library_ms": lib_ms}
         if key != "delta":
             out[name]["bwd_route"] = "tc"
+        else:
+            out[name]["device_ms"] = dev_ms
     log(f"  sdpa backward (all three together, bf16) {lib_ms:.4f} ms")
 
     # the SIMT route's own type: f32 at the same shape
@@ -1456,63 +1497,148 @@ def check_flash_function(dev):
             f"(relative to each gradient's max; limit {limit:.3g})")
 
 
+def _decode_inputs(B, L, H, K, D, Dv, dtype, dev, gen):
+    q = torch.randn((B, 1, H, D), generator=gen, device=dev).to(dtype)
+    k = torch.randn((B, L, K, D), generator=gen, device=dev).to(dtype)
+    v = torch.randn((B, L, K, Dv), generator=gen, device=dev).to(dtype)
+    return q, k, v
+
+
 def check_decode(dev, bw, tc_rate):
-    """The ragged decode kernel against its plain version at the test
-    shapes (lengths 0, 1, L and between; f32 and bf16) and at the main
-    path's: B 4 against a 2048-slot bf16 cache, live lengths 1024-1088."""
+    """The split-key decode kernel against its plain version, within
+    ``tolerance``, f32 and bf16: lengths 0, 1, L and between, and at the
+    edges of the cluster's split (N = ``DECODE_CLUSTER`` blocks: below N,
+    N, N + 1, c N +- 1 with c = 17 and 64, L - 1, L; and -5 and L + 9,
+    which the kernel clamps) at 9/3 heads of 64 and 4/2 of 16, L 256 and
+    2048; (D, Dv) = (64, 32) and (256, 256), rep 1 (2/2 heads), rep * Dv =
+    2048 (8/1 heads of 256; a two-stage ring in f32), head dims that are not
+    whole 16-byte chunks (20 / 36: plain loads); B 1, 2 and 4 at L 2048
+    (the serving rungs). Length 0 gives exact zeros. Then at the main
+    path's shape (B 4 against a 2048-slot bf16 cache, live lengths
+    1024-1088): a bitwise repeat, the C side's shared memory against
+    ``decode_geometry``, the kernel timed beside the plain version, SDPA
+    with a length mask and the byte bound, by CUDA events and by the
+    profiler's device time (also with every length 0: the fixed cost), and
+    the cluster sizes 4, 8, 16 timed beside each other (log only)."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ops
     gen = torch.Generator(device=dev).manual_seed(7)
+    N = fa.DECODE_CLUSTER
     err, n = 0.0, 0
-    for (H, K), D, L in (((4, 2), 16, 256), ((9, 3), 64, 256),
-                         ((9, 3), 64, 2048)):
-        for dtype in (torch.float32, torch.bfloat16):
-            B = 6
-            q = torch.randn((B, 1, H, D), generator=gen, device=dev).to(dtype)
-            k, v = (torch.randn((B, L, K, D), generator=gen, device=dev
-                                ).to(dtype) for _ in range(2))
-            lens = torch.tensor([0, 1, L, 77, L // 2, L - 1],
-                                dtype=torch.int32, device=dev)
-            got = fa.flash_decode_cuda(q, k, v, lens)
-            want = fa.flash_decode_ref(q, k, v, lens)
-            err = max(err, close(got, want,
-                                 f"decode {H}/{K} {D} L{L} {dtype}"))
-            check(bool((got[0] == 0).all()), "decode: length 0 gives 0")
-            n += 1
-    log(f"flash_decode: {n} variants within tolerance (max|err| {err:.3g})")
+
+    def run(B, L, H, K, D, Dv, dtype, lens):
+        nonlocal err, n
+        q, k, v = _decode_inputs(B, L, H, K, D, Dv, dtype, dev, gen)
+        lens = torch.tensor(lens, dtype=torch.int32, device=dev)
+        got = fa.flash_decode_cuda(q, k, v, lens)
+        want = fa.flash_decode_ref(q, k, v, lens)
+        what = f"decode B{B} L{L} {H}/{K} ({D}, {Dv}) {dtype}"
+        err = max(err, close(got, want, what))
+        zero = (lens <= 0).nonzero().flatten().tolist()
+        check(all(bool((got[i] == 0).all()) for i in zero),
+              f"{what}: length 0 gives 0")
+        n += 1
+
+    for dtype in (torch.float32, torch.bfloat16):
+        for (H, K), D, L in (((4, 2), 16, 256), ((9, 3), 64, 256),
+                             ((9, 3), 64, 2048)):
+            c = [17, 64] if L > 64 * N else [17]
+            edges = [0, 1, N - 1, N, N + 1, L - 1, L, 77, L // 2, -5, L + 9]
+            edges += [x * N + d for x in c for d in (-1, 1)]
+            run(len(edges), L, H, K, D, D, dtype, edges)
+        for (H, K), D, Dv, L in (((9, 3), 64, 32, 256), ((4, 2), 256, 256, 256),
+                                 ((2, 2), 64, 64, 2048), ((8, 1), 256, 256,
+                                                          2048),
+                                 ((4, 2), 20, 36, 256)):
+            run(6, L, H, K, D, Dv, dtype, [0, 1, L, 77, L // 2 + 3, L - 1])
+        for B in (1, 2, 4):
+            run(B, 2048, 9, 3, 64, 64, dtype, [1088, 1071, 1040, 1024][:B])
+    check(fa.decode_geometry(2048, 8, 256, 256, 4).stages == 2,
+          "rep * Dv 2048 in f32 runs a two-stage ring")
+    log(f"flash_decode: {n} variants within tolerance (max|err| {err:.3g}), "
+        f"cluster of {N}")
 
     B, L, H, K, D = 4, 2048, 9, 3, 64
-    q = torch.randn((B, 1, H, D), generator=gen, device=dev
-                    ).to(torch.bfloat16)
-    k, v = (torch.randn((B, L, K, D), generator=gen, device=dev
-                        ).to(torch.bfloat16) for _ in range(2))
+    q, k, v = _decode_inputs(B, L, H, K, D, D, torch.bfloat16, dev, gen)
     lens = torch.tensor([1088, 1071, 1040, 1024], dtype=torch.int32,
                         device=dev)
     got = ops.flash_decode(q, k, v, lens)
     want = fa.flash_decode_ref(q, k, v, lens)
     err = max(err, close(got, want, "decode main shape"))
-    lib = fa._lib()
+    again = ops.flash_decode(q, k, v, lens)
+    check(same(got, again), "decode main shape: a bitwise repeat")
+    lib = fa._decode_lib()
+    geo = fa.decode_geometry(L, H // K, D, D, 2)
+    check(lib.tri_flash_decode_smem(1, L, H, K, D, D, geo.cluster, geo.tk,
+                                    geo.stages, geo.lpr) == geo.smem,
+          "decode shared memory: C and decode_geometry agree")
     o = torch.empty_like(q)
     stream = torch.cuda.current_stream().cuda_stream
 
-    def raw():
-        lib.tri_flash_decode(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                             lens.data_ptr(), o.data_ptr(), 1, B, L, H, K, D,
-                             D, D ** -0.5, stream)
+    def raw(cluster=N, lens=lens):
+        g = fa.decode_geometry(L, H // K, D, D, 2, cluster)
+        return lambda: lib.tri_flash_decode(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), lens.data_ptr(),
+            o.data_ptr(), 1, B, L, H, K, D, D, D ** -0.5, g.cluster, g.tk,
+            g.stages, g.lpr, stream)
 
-    ms = time_ms(raw, iters=50)
+    sweep = {}
+    for cluster in (4, 8, 16):
+        check(raw(cluster)() == 0, f"decode launch, cluster {cluster}")
+        torch.cuda.synchronize()
+        close(o, want, f"decode main shape, cluster {cluster}")
+        sweep[cluster] = time_ms(raw(cluster), iters=50)
+    ms = time_ms(raw(), iters=50)
+    dev_ms = device_ms(raw())
+    # the fixed cost: every row of length 0 (launch, length read, barrier,
+    # combine and write; no key loaded)
+    floor_ms = device_ms(raw(lens=torch.zeros_like(lens)))
     plain_ms = time_ms(lambda: fa.flash_decode_ref(q, k, v, lens), iters=5)
     mask = (torch.arange(L, device=dev)[None, :] < lens[:, None]
             ).reshape(B, 1, 1, L)
     lib_ms = time_ms(lambda: _sdpa(q, k, v, attn_mask=mask), iters=50)
+    lib_dev_ms = device_ms(lambda: _sdpa(q, k, v, attn_mask=mask))
     live = int(lens.sum())
     nbytes = 2 * (2 * B * H * D + 2 * live * K * D) + 4 * B
     b_ms, by = bound(nbytes, live * H * 4 * D, bw, tc_rate)
     log(f"flash_decode B{B} L{L} H{H}/K{K} D{D} bf16, live {lens.tolist()}: "
-        f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, "
-        f"bound {b_ms:.5f} ms ({by})")
+        f"kernel {ms:.5f} ms (cluster {N}; by cluster size "
+        + ", ".join(f"{c}: {t:.5f}" for c, t in sweep.items())
+        + f"), plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound "
+        f"{b_ms:.5f} ms ({by}); device time (profiler) kernel "
+        f"{dev_ms:.5f} ms (every length 0: {floor_ms:.5f} ms), sdpa "
+        f"{lib_dev_ms:.5f} ms")
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": b_ms, "bound_by": by, "library_ms": lib_ms}
+            "bound_ms": b_ms, "bound_by": by, "library_ms": lib_ms,
+            "device_ms": dev_ms, "library_device_ms": lib_dev_ms}
+
+
+def check_delta(dev) -> float:
+    """delta against its plain version, within ``tolerance``, and a bitwise
+    repeat of each call: Dv 16, 40, 64, 128 and 256 (and 36, whose bf16
+    rows are not whole 16-byte chunks: the scalar tail) in f32 and bf16 at
+    B 2, S 1024, 9 heads; S 1000 (a partial last block) at Dv 64 in bf16;
+    then the LM rungs (B 2, 4, 8, S 1024, 9 heads, Dv 64, bf16). -> max
+    |err|."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    gen = torch.Generator(device=dev).manual_seed(10)
+    err, n = 0.0, 0
+    cases = [(2, 1024, Dv, dt) for Dv in (16, 36, 40, 64, 128, 256)
+             for dt in (torch.float32, torch.bfloat16)]
+    cases += [(2, 1000, 64, torch.bfloat16)]
+    cases += [(B, 1024, 64, torch.bfloat16) for B in _lm_rungs()]
+    for B, S, Dv, dtype in cases:
+        o, do = (torch.randn((B, S, 9, Dv), generator=gen, device=dev
+                             ).to(dtype) for _ in range(2))
+        got = ops.flash_bwd_delta(o, do)
+        what = f"delta B{B} S{S} Dv{Dv} {dtype}"
+        err = max(err, close(got, fa.flash_bwd_delta_ref(o, do), what))
+        check(same(got, ops.flash_bwd_delta(o, do)), f"{what}: bitwise repeat")
+        n += 1
+    log(f"flash_attention_bwd_delta: {n} variants within tolerance and "
+        f"repeating bitwise (max|err| {err:.3g})")
+    return err
 
 
 # ------------------------------- phase 4b: LM serving, card vs CPU ---
@@ -1790,8 +1916,10 @@ def profile_lm_step(tr) -> None:
     def family(n):
         if "bwd_dq_tc_kernel" in n or "bwd_dkv_tc_kernel" in n:
             return "flash backward dQ, dK/dV (this port's tensor-core kernels)"
-        if "dq_kernel" in n or "dkv_kernel" in n or "delta_kernel" in n:
-            return "flash backward delta; SIMT dQ, dK/dV (this port's kernels)"
+        if "delta_kernel" in n:
+            return "flash backward delta (this port's kernel)"
+        if "dq_kernel" in n or "dkv_kernel" in n:
+            return "flash backward SIMT dQ, dK/dV (this port's kernels)"
         if "fwd_tc_kernel" in n:
             return "flash forward (this port's tensor-core kernel)"
         if "fwd_kernel" in n:
@@ -2112,8 +2240,8 @@ def serve_main_path(seed: int = 0):
 
 
 def _serve_family(n):
-    if "decode_kernel" in n:
-        return "flash_decode (this port's kernel)"
+    if "decode_split_kernel" in n:
+        return "flash_decode (this port's split-key kernel)"
     if "fwd_tc_kernel" in n:
         return "flash forward (this port's tensor-core kernel)"
     if "fwd_kernel" in n:
@@ -2208,12 +2336,13 @@ def main() -> int:
         log(f"  ptxas {s}: {len(regs)} kernels, at most {max(regs)} "
             f"registers a thread, {spills} bytes of spills, static smem "
             f"at most {max(smem, default=0)} bytes")
-        if s in ("flash_fwd_sm90", "flash_bwd_sm90", "flash_attention_bwd"):
+        if s in ("flash_fwd_sm90", "flash_bwd_sm90", "flash_attention_bwd",
+                 "flash_decode_sm90"):
             for kern, nreg, spill in ptxas_kernels(text):
                 log(f"    {s}: {kern}: {nreg} registers, {spill} bytes of "
                     "spill stores")
                 check(not spill or not s.endswith("sm90"),
-                      f"no spills on the tensor-core route: {kern}")
+                      f"no spills in the Hopper (sm90) sources: {kern}")
 
     dev = torch.device("cuda")
     t_phase = time.perf_counter()
@@ -2232,7 +2361,10 @@ def main() -> int:
     res["qdq_cast"] = check_qdq(dev, bw, f32_ops)
     res.update(check_flash(dev, bw, f32_ops, tc_ops))
     res["flash_decode"] = check_decode(dev, bw, tc_ops)
+    delta_err = check_delta(dev)
     res.update(check_flash_bwd(dev, bw, f32_ops, tc_ops))
+    res["flash_attention_bwd_delta"]["max_abs_err"] = max(
+        res["flash_attention_bwd_delta"]["max_abs_err"], delta_err)
     check_flash_function(dev)
     res["grad_stats"] = check_grad_stats(dev, bw, f32_ops)
     log(f"kernel checks in {time.perf_counter() - t_phase:.1f} s")

@@ -1,19 +1,17 @@
 // Flash attention for Hopper (sm_90a), hand-written CUDA: the prefill
-// forward and the ragged single-token decode.
+// forward on the CUDA cores (f32, and head dims the tensor-core kernel of
+// flash_fwd_sm90.cu does not take; flash_attention.fwd_route).
 //
-// Replaces the Pallas TPU kernels of src/repro/kernels/flash_attention.py:
+// Replaces the Pallas TPU kernel of src/repro/kernels/flash_attention.py:
 //   tri_flash_fwd     <- _fwd_call (_fwd_body: causal, static window,
 //                        optional segments, optional LSE residual)
-//   tri_flash_decode  <- flash_decode (_decode_kernel: row b attends cache
-//                        slots [0, lengths[b]))
+// (the ragged decode is flash_decode_sm90.cu's).
 //
-// What bounds them on this card. The forward does 4*S*S*D*H/2 flops for
+// What bounds it on this card. The forward does 4*S*S*D*H/2 flops for
 // causal attention against ~2*S*(H+K)*D bytes, far above the H100's ~295
-// flops a byte: it is bound by arithmetic. These first kernels compute in
-// f32 on the CUDA cores (no tensor cores yet: wgmma/TMA come later), so
-// their bound is the f32 SIMT rate, some 15x below the bf16 tensor-core
-// bound that bound_ms states. The decode reads each live K/V row once for
-// H/K query heads (2*rep flops a loaded element): bound by bytes.
+// flops a byte: it is bound by arithmetic. This kernel computes in f32 on
+// the CUDA cores, so its bound is the f32 SIMT rate, some 15x below the
+// bf16 tensor-core bound that bound_ms states.
 //
 // Design, forward. One block of 256 threads per (q tile of 64 rows, q head,
 // batch row). The q tile (pre-scaled, f32) stays in shared memory; the
@@ -31,14 +29,8 @@
 // fully masked (m still NEG_INF, p = 1) is wiped there by corr = 0 exactly,
 // as on the TPU.
 //
-// Design, decode. One block per (batch row, kv head) serves the H/K query
-// heads of the group from one read of each K/V tile. The block loops over
-// keys [0, lengths[b]) in tiles of 64 and stops at the row's length, so it
-// reads live bytes, not capacity; a row of length 0 runs no tile and
-// writes 0 / max(0, 1e-30) = 0, never NaN.
-//
-// Tolerance against the plain PyTorch versions (flash_attention.py): the
-// sums run in another order and nvcc contracts a*b+c (these kernels are
+// Tolerance against the plain PyTorch version (flash_attention.py): the
+// sums run in another order and nvcc contracts a*b+c (this kernel is
 // built without --fmad=false): ~1e-5 relative in f32, one bf16 ulp of the
 // output where the working type is bf16.
 #include <cuda_bf16.h>
@@ -52,7 +44,6 @@ constexpr int THREADS = 256;
 constexpr int WARPS = THREADS / 32;
 constexpr int BQ = 64;          // forward: query rows a block
 constexpr int BK = 64;          // forward: keys a tile
-constexpr int BD = 64;          // decode: keys a tile
 constexpr float NEG_INF = -2.0e38f;
 
 enum DType { F32 = 0, BF16 = 1 };
@@ -286,123 +277,6 @@ int fwd_dispatch(const FwdArgs& a, int B, cudaStream_t st) {
   return fwd_launch<T, 16>(a, B, st);
 }
 
-// ------------------------------------------------------------- decode ----
-struct DecArgs {
-  const void* q;
-  const void* k;
-  const void* v;
-  const int* lengths;
-  void* o;
-  int L, H, K, D, Dv;
-  float scale;
-};
-
-// ME = accumulators per thread: rep * Dv <= THREADS * ME
-template <typename T, int ME>
-__global__ void __launch_bounds__(THREADS) decode_kernel(DecArgs a) {
-  extern __shared__ float smem[];
-  const int D = a.D, Dv = a.Dv, L = a.L, H = a.H, K = a.K;
-  const int rep = H / K;
-  const int ldk = D + 1;
-  float* qs = smem;                       // rep x D
-  float* ks = qs + rep * D;               // BD x (D+1)
-  float* vs = ks + BD * ldk;              // BD x Dv
-  float* ps = vs + BD * Dv;               // rep x (BD+1)
-  float* m_s = ps + rep * (BD + 1);       // rep
-  float* l_s = m_s + rep;
-  float* c_s = l_s + rep;
-
-  const int b = blockIdx.x / K, g = blockIdx.x - b * K;
-  const int tid = threadIdx.x;
-  const T* q = static_cast<const T*>(a.q);
-  const T* kp = static_cast<const T*>(a.k);
-  const T* vp = static_cast<const T*>(a.v);
-  const int len = min(max(a.lengths[b], 0), L);
-
-  for (int e = tid; e < rep * D; e += THREADS) {
-    const int r = e / D, d = e - r * D;
-    qs[e] = to_f(q[((long)b * H + g * rep + r) * D + d]) * a.scale;
-  }
-  if (tid < rep) {
-    m_s[tid] = NEG_INF;
-    l_s[tid] = 0.f;
-  }
-  float acc[ME];
-#pragma unroll
-  for (int t = 0; t < ME; ++t) acc[t] = 0.f;
-
-  for (int k0 = 0; k0 < len; k0 += BD) {
-    const int nv = min(BD, len - k0);
-    __syncthreads();
-    for (int e = tid; e < nv * D; e += THREADS) {
-      const int r = e / D, d = e - r * D;
-      ks[r * ldk + d] = to_f(kp[(((long)b * L + k0 + r) * K + g) * D + d]);
-    }
-    for (int e = tid; e < nv * Dv; e += THREADS) {
-      const int r = e / Dv, d = e - r * Dv;
-      vs[r * Dv + d] = to_f(vp[(((long)b * L + k0 + r) * K + g) * Dv + d]);
-    }
-    __syncthreads();
-    for (int e = tid; e < rep * BD; e += THREADS) {
-      const int r = e / BD, j = e - r * BD;
-      if (j < nv) {
-        float s = 0.f;
-        for (int d = 0; d < D; ++d) s += qs[r * D + d] * ks[j * ldk + d];
-        ps[r * (BD + 1) + j] = s;
-      }
-    }
-    __syncthreads();
-    softmax_rows(ps, BD + 1, rep, nv, m_s, l_s, c_s);
-    __syncthreads();
-#pragma unroll
-    for (int t = 0; t < ME; ++t) {
-      const int e = tid + t * THREADS;
-      if (e < rep * Dv) {
-        const int r = e / Dv, c = e - r * Dv;
-        float x = acc[t] * c_s[r];
-        for (int j = 0; j < nv; ++j) x += ps[r * (BD + 1) + j] * vs[j * Dv + c];
-        acc[t] = x;
-      }
-    }
-  }
-  __syncthreads();
-  T* o = static_cast<T*>(a.o);
-#pragma unroll
-  for (int t = 0; t < ME; ++t) {
-    const int e = tid + t * THREADS;
-    if (e < rep * Dv) {
-      const int r = e / Dv, c = e - r * Dv;
-      o[((long)b * H + g * rep + r) * Dv + c] =
-          from_f<T>(acc[t] / fmaxf(l_s[r], 1e-30f));
-    }
-  }
-}
-
-size_t decode_smem(int rep, int D, int Dv) {
-  return sizeof(float) *
-         (rep * D + BD * (D + 1) + BD * Dv + rep * (BD + 1) + 3 * rep);
-}
-
-template <typename T, int ME>
-int decode_launch(const DecArgs& a, int B, cudaStream_t st) {
-  const size_t smem = decode_smem(a.H / a.K, a.D, a.Dv);
-  cudaError_t e = cudaFuncSetAttribute(
-      decode_kernel<T, ME>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (e != cudaSuccess) return (int)e;
-  decode_kernel<T, ME><<<B * a.K, THREADS, smem, st>>>(a);
-  return (int)cudaGetLastError();
-}
-
-template <typename T>
-int decode_dispatch(const DecArgs& a, int B, cudaStream_t st) {
-  const int me = ((a.H / a.K) * a.Dv + THREADS - 1) / THREADS;
-  if (me <= 1) return decode_launch<T, 1>(a, B, st);
-  if (me <= 2) return decode_launch<T, 2>(a, B, st);
-  if (me <= 4) return decode_launch<T, 4>(a, B, st);
-  return decode_launch<T, 8>(a, B, st);
-}
-
 }  // namespace
 
 extern "C" {
@@ -418,17 +292,6 @@ int tri_flash_fwd(const void* q, const void* k, const void* v, const int* seg,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == F32) return fwd_dispatch<float>(a, B, st);
   return fwd_dispatch<__nv_bfloat16>(a, B, st);
-}
-
-// q (B,1,H,D), k (B,L,K,D), v (B,L,K,Dv), o (B,1,H,Dv), all of `dtype`;
-// lengths (B,) int32. (H/K) * Dv <= 2048, D <= 256, Dv <= 256.
-int tri_flash_decode(const void* q, const void* k, const void* v,
-                     const int* lengths, void* o, int dtype, int B, int L,
-                     int H, int K, int D, int Dv, float scale, void* stream) {
-  DecArgs a{q, k, v, lengths, o, L, H, K, D, Dv, scale};
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == F32) return decode_dispatch<float>(a, B, st);
-  return decode_dispatch<__nv_bfloat16>(a, B, st);
 }
 
 }  // extern "C"

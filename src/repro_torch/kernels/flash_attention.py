@@ -3,8 +3,9 @@ segments, optional LSE residual), its backward (delta, dQ, dK/dV from the
 saved LSE) and the ragged single-token decode.
 
 Two forms of each: the hand-written CUDA kernels for Hopper
-(``csrc/flash_fwd_sm90.cu``, ``csrc/flash_attention.cu`` and
-``csrc/flash_attention_bwd.cu``, bound through ``ctypes``: ``*_cuda``) and
+(``csrc/flash_fwd_sm90.cu``, ``csrc/flash_attention.cu``,
+``csrc/flash_bwd_sm90.cu``, ``csrc/flash_attention_bwd.cu`` and
+``csrc/flash_decode_sm90.cu``, bound through ``ctypes``: ``*_cuda``) and
 their plain PyTorch versions
 (``*_ref``), which mirror ``repro/kernels/ref.py`` (full softmax with the
 finite ``NEG_INF``) and, for the backward, the math of the reference's
@@ -25,8 +26,12 @@ the tensor-core kernel (``flash_fwd_sm90.cu``: wgmma, TMA), everything
 else the f32 SIMT kernel (``flash_attention.cu``). The backward's dQ and
 dK/dV do the same through ``bwd_route`` (the same rule): the tensor-core
 kernels of ``flash_bwd_sm90.cu`` or the SIMT kernels of
-``flash_attention_bwd.cu``, which also hold delta on every route. A
-launch or build error raises; nothing switches route on a failure.
+``flash_attention_bwd.cu``, which also hold delta on every route. The
+decode splits each (row, kv head)'s live keys over a cluster of
+``DECODE_CLUSTER`` blocks (``flash_decode_sm90.cu``); ``decode_geometry``
+and ``delta_geometry`` size the decode's shared ring and delta's blocks
+from the shapes alone. A launch or build error raises; nothing switches
+route on a failure.
 
 ``BQ``, ``BK`` and ``DECODE_BLOCKS`` are the reference's tile sizes. The
 port keeps them for its gates, so it takes a kernel exactly where the
@@ -36,7 +41,8 @@ reference does; the CUDA kernels tile by 64 inside (the SIMT backward by
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+import functools
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -108,6 +114,102 @@ def bwd_tc_smem(kernel: str, D: int, Dv: int) -> int:
     size = 1024 + TC_BOX_BYTES * (1 + TC_STAGES) * boxes + 8 * (2 * TC_STAGES
                                                                  + 1)
     return size + ({"dq": 0, "dkv": 4 * 2 * TC_STAGES * 64}[kernel])
+
+
+#: blocks of the decode's thread-block cluster: the live keys of a (row, kv
+#: head) are split over them (8 is the portable cluster size)
+DECODE_CLUSTER = 8
+#: threads of a decode block and of a delta block
+DECODE_THREADS = DELTA_THREADS = 256
+#: the decode's shared K/V ring, its (rep, tk) f32 score tile, and the
+#: cluster's partials that rank 0 receives, at most, bytes
+DECODE_RING_BYTES, DECODE_SCORE_BYTES = 128 * 1024, 32 * 1024
+DECODE_PARTIAL_BYTES = 96 * 1024
+#: row passes whose loads a delta thread issues together (``DELTA_U``)
+DELTA_PASSES = 4
+
+
+def _lanes(chunks: int) -> int:
+    """Lanes a row of ``chunks`` 16-byte chunks: the largest power of two
+    up to min(chunks, 32), so a lane takes at most two chunks (64 at the
+    most: f32 at head dim 256)."""
+    lanes = 1
+    while lanes * 2 <= min(chunks, 32):
+        lanes *= 2
+    return lanes
+
+
+class DecodeGeometry(NamedTuple):
+    cluster: int    # blocks a (row, kv head)
+    tk: int         # keys a ring stage
+    stages: int     # ring stages: 1 where one holds a rank's keys, else 2
+    lpr: int        # lanes a shared K row
+    Dp: int         # head dims padded to whole 16-byte chunks
+    Dvp: int
+    smem: int       # dynamic shared memory of a block, bytes
+
+
+@functools.lru_cache(maxsize=256)
+def decode_geometry(L: int, rep: int, D: int, Dv: int, itemsize: int,
+                    cluster: int = DECODE_CLUSTER) -> DecodeGeometry:
+    """The decode kernel's launch geometry from the shapes alone (never from
+    ``lengths``). ``cluster`` shrinks where the ranks' partials (2 rep + rep
+    Dv floats each) would pass ``DECODE_PARTIAL_BYTES``; the ring holds one
+    stage of ceil(L / cluster) keys where that fits in
+    ``DECODE_RING_BYTES`` and the block's shared memory, else two smaller
+    stages. ``smem`` is ``decode_smem`` of ``flash_decode_sm90.cu``: the
+    ring, the (rep, tk) f32 scores, m, l, corr, a 16-byte chunk of f32 sums
+    a thread and the cluster's partials."""
+    epc = 16 // itemsize
+    Dp, Dvp = -(-D // epc) * epc, -(-Dv // epc) * epc
+    row = (Dp + Dvp) * itemsize
+    part = 4 * (2 * rep + rep * Dv)
+    cluster = max(1, min(cluster, DECODE_PARTIAL_BYTES // part))
+    fixed = 4 * (3 * rep + DECODE_THREADS * epc) + cluster * part
+    room = SMEM_LIMIT - fixed             # for the ring and the scores
+    most = -(-L // cluster)               # keys of the fullest rank
+    score_cap = DECODE_SCORE_BYTES // (4 * rep)
+    tk = min(most, DECODE_RING_BYTES // row, room // (row + 4 * rep),
+             score_cap)
+    stages = 1
+    if tk < most:
+        stages = 2
+        tk = max(1, min(DECODE_RING_BYTES // (2 * row),
+                        room // (2 * row + 4 * rep), score_cap))
+    smem = stages * tk * row + 4 * rep * tk + fixed
+    return DecodeGeometry(cluster, tk, stages, _lanes(Dp // epc), Dp, Dvp,
+                          smem)
+
+
+def decode_split(length: int, L: int, cluster: int = DECODE_CLUSTER):
+    """-> [(first, end)] keys of each rank for one row, as each block of the
+    decode kernel computes them: len = min(max(length, 0), L), c =
+    ceil(len / cluster), rank r takes [r c, min((r + 1) c, len))."""
+    n = min(max(int(length), 0), L)
+    c = -(-n // cluster)
+    firsts = [min(r * c, n) for r in range(cluster)]
+    return [(first, min(first + c, n)) for first in firsts]
+
+
+class DeltaGeometry(NamedTuple):
+    lpr: int        # lanes a (s, h) row
+    nvec: int       # 16-byte chunks of a row's vector body (0: all tail)
+    ts: int         # sequence positions a block
+    smem: int       # the block's shared memory, bytes
+
+
+@functools.lru_cache(maxsize=256)
+def delta_geometry(H: int, Dv: int, itemsize: int) -> DeltaGeometry:
+    """delta's launch geometry: lanes a row, the row's vector body where
+    rows are whole 16-byte chunks (else all scalar tail), and the positions
+    a block, whose ts * H rows fill the ``DELTA_PASSES`` passes of one load
+    batch (1 to 32 positions); shared memory ts * H floats."""
+    epc = 16 // itemsize
+    nvec = Dv // epc if Dv % epc == 0 else 0
+    lpr = _lanes(nvec) if nvec else 32
+    rows = DELTA_THREADS // lpr * DELTA_PASSES
+    ts = max(1, min(32, rows // H))
+    return DeltaGeometry(lpr, nvec, ts, 4 * ts * H)
 
 
 def decode_block(L: int) -> Optional[int]:
@@ -264,8 +366,17 @@ def _lib() -> ctypes.CDLL:
     if lib.tri_flash_fwd.argtypes is None:     # first use: declare the ABI
         lib.tri_flash_fwd.argtypes = [_P] * 6 + [_I] * 9 + [_F, _P]
         lib.tri_flash_fwd.restype = _I
-        lib.tri_flash_decode.argtypes = [_P] * 5 + [_I] * 7 + [_F, _P]
+    return lib
+
+
+def _decode_lib() -> ctypes.CDLL:
+    lib = _build.load("flash_decode_sm90")
+    if lib.tri_flash_decode.argtypes is None:  # first use: declare the ABI
+        lib.tri_flash_decode.argtypes = [_P] * 5 + [_I] * 7 + [_F] + [_I] * 4 \
+            + [_P]
         lib.tri_flash_decode.restype = _I
+        lib.tri_flash_decode_smem.argtypes = [_I] * 10
+        lib.tri_flash_decode_smem.restype = ctypes.c_long
     return lib
 
 
@@ -290,7 +401,7 @@ def _tc_bwd_lib() -> ctypes.CDLL:
 def _bwd_lib() -> ctypes.CDLL:
     lib = _build.load("flash_attention_bwd")
     if lib.tri_flash_bwd_dq.argtypes is None:  # first use: declare the ABI
-        lib.tri_flash_bwd_delta.argtypes = [_P] * 3 + [_I] * 5 + [_P]
+        lib.tri_flash_bwd_delta.argtypes = [_P] * 3 + [_I] * 7 + [_P]
         lib.tri_flash_bwd_delta.restype = _I
         lib.tri_flash_bwd_dq.argtypes = [_P] * 8 + [_I] * 9 + [_F, _I, _P]
         lib.tri_flash_bwd_dq.restype = _I
@@ -383,10 +494,11 @@ def flash_bwd_delta_cuda(o, do):
     if do.device != o.device:
         raise ValueError("flash_bwd_delta inputs lie on different devices")
     delta = torch.empty((B, H, S), dtype=torch.float32, device=o.device)
+    geo = delta_geometry(H, Dv, o.element_size())
     with torch.cuda.device(o.device):
         rc = _bwd_lib().tri_flash_bwd_delta(
             o.data_ptr(), do.data_ptr(), delta.data_ptr(),
-            _DTYPE_CODE[o.dtype], B, S, H, Dv,
+            _DTYPE_CODE[o.dtype], B, S, H, Dv, geo.ts, geo.lpr,
             torch.cuda.current_stream(o.device).cuda_stream)
     _raise_on(rc, "flash_bwd_delta")
     return delta
@@ -468,7 +580,9 @@ def flash_bwd_dkv_cuda(q, k, v, do, lse, delta, segments=None, *,
 
 
 def flash_decode_cuda(q, k, v, lengths, *, scale: Optional[float] = None):
-    """The ragged decode kernel -> (B, 1, H, Dv), a fresh tensor."""
+    """The ragged decode kernel -> (B, 1, H, Dv), a fresh tensor. Its grid
+    and shared memory come from the shapes (``decode_geometry``); the
+    lengths are read on the card only."""
     B, one, H, K, D, Dv = _dims(q, k, v)
     L = k.shape[1]
     if one != 1:
@@ -486,11 +600,12 @@ def flash_decode_cuda(q, k, v, lengths, *, scale: Optional[float] = None):
     if scale is None:
         scale = D ** -0.5
     o = torch.empty((B, 1, H, Dv), dtype=q.dtype, device=dev)
-    lib = _lib()
+    geo = decode_geometry(L, H // K, D, Dv, q.element_size())
     with torch.cuda.device(dev):
-        rc = lib.tri_flash_decode(
+        rc = _decode_lib().tri_flash_decode(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), lens.data_ptr(),
             o.data_ptr(), _DTYPE_CODE[q.dtype], B, L, H, K, D, Dv,
-            float(scale), torch.cuda.current_stream(dev).cuda_stream)
+            float(scale), geo.cluster, geo.tk, geo.stages, geo.lpr,
+            torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(rc, "flash_decode")
     return o

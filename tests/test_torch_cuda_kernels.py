@@ -126,6 +126,43 @@ def test_flash_decode_kernel_matches_plain(card, dtype):
     assert bool((got[0] == 0).all())
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_decode_split_edges_and_repeat(card, dtype):
+    """The split-key decode at lengths on the edges of the cluster's split
+    (below N, N, N + 1, c N +- 1, L - 1, L; and -3, L + 5, clamped) and
+    at B 1, against the plain version; each call repeats bitwise."""
+    g = torch.Generator(device=card).manual_seed(11)
+    N, L, H, K, D = fa.DECODE_CLUSTER, 2048, 9, 3, 64
+    edges = [0, 1, N - 1, N, N + 1, 17 * N - 1, 17 * N + 1, 64 * N - 1,
+             64 * N + 1, L - 1, L, -3, L + 5]
+    for lens in (edges, [1071]):
+        B = len(lens)
+        q = torch.randn((B, 1, H, D), generator=g, device=card).to(dtype)
+        k, v = (torch.randn((B, L, K, D), generator=g, device=card
+                            ).to(dtype) for _ in range(2))
+        lens = torch.tensor(lens, dtype=torch.int32, device=card)
+        got = fa.flash_decode_cuda(q, k, v, lens)
+        assert _close(got, fa.flash_decode_ref(q, k, v, lens))
+        assert _same(got, fa.flash_decode_cuda(q, k, v, lens))
+        for i in (lens <= 0).nonzero().flatten().tolist():
+            assert bool((got[i] == 0).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("Dv", [40, 256])
+def test_flash_bwd_delta_vector_tail_and_repeat(card, Dv, dtype):
+    """delta at Dv 40 (five bf16 chunks: a lane takes a second one) and 256,
+    and at a sequence length that leaves a partial last block, against the
+    plain version; each call repeats bitwise."""
+    g = torch.Generator(device=card).manual_seed(12)
+    for S in (1024, 1000):
+        o, do = (torch.randn((2, S, 9, Dv), generator=g, device=card
+                             ).to(dtype) for _ in range(2))
+        got = fa.flash_bwd_delta_cuda(o, do)
+        assert _close(got, fa.flash_bwd_delta_ref(o, do))
+        assert _same(got, fa.flash_bwd_delta_cuda(o, do))
+
+
 def _seg(card, B, S):
     seg = (torch.arange(S, device=card) // 77).to(torch.int32)
     return seg[None].expand(B, S).contiguous()
