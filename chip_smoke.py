@@ -19,8 +19,13 @@ Phases (any failure raises and the script exits non-zero):
          134.5 M parameters under ``lm_grouping``, 32 layers, the bf16
          gradient and copy of that path) and over every fused_apply
          variant, bitwise;
-       - qdq_cast over every variant and over all of smollm-135m's leaves
-         (the main path's tier-0 cast), bitwise;
+       - qdq_cast, both forms (two-pass: the absmax found in the call;
+         one-pass: given), over every variant and edge case (offsets 0-7
+         elements, sizes 0-17 and 1,048,579, f32/bf16 in and out, NaN
+         and inf, ten repeats) and over all of smollm-135m's leaves (the
+         serving path's tier-0 cast), bitwise; each form one device
+         operation a call; timed f32 and bf16 out, beside the cast then
+         ``.to(bf16)`` and a copy;
        - flash_attention, both routes (``flash_attention.fwd_route``): the
          tensor-core kernel (bf16) over every variant (causal, not causal,
          window, segments; GQA rep 1 and 3; (D, Dv) in (16, 16), (64, 64),
@@ -73,13 +78,17 @@ Phases (any failure raises and the script exits non-zero):
          eight requests of 64 tokens in two waves; the launch counts must
          equal 30 x prefills (flash_attention, every one on the
          tensor-core route), 30 x decode steps (flash_decode) and the
-         tier-0 leaves (qdq_cast), and no attention gate may fall back;
+         tier-0 leaves (qdq_cast, two-pass), and no attention gate may
+         fall back;
        - LM training: ``repro_torch.launch.train.main`` for smollm-135m at
          30 layers, S 1024, rungs 2/4/8, 20 steps (``LM_TRAIN_ARGS``,
          t_ctrl / t_curv lowered to 5 / 10 so both controls fire); the
          counts must equal 2 x 30 forward launches (forward and remat
          recompute, all on the tensor-core route) and 30 of each backward
-         kernel a step (dQ and dK/dV all on the tensor-core route);
+         kernel a step (dQ and dK/dV all on the tensor-core route); then
+         the tier-0 serving set of the trained masters from
+         ``Trainer.serving_amax_tree`` (qdq_cast, one-pass, one launch a
+         leaf, bitwise against the plain version);
   6. where the time goes: ``torch.profiler`` over a few ResNet-18 train
      steps, over one serving step that admits four prompts (the prefill),
      over a few decode steps at rung 4 and over one LM train step at rung
@@ -111,11 +120,15 @@ main path launches it), timed in f32. The backward's dQ and dK/dV rows
 carry ``bwd_route`` the same way: ``flash_attention_bwd_dq`` and
 ``flash_attention_bwd_dkv`` are the tensor-core kernels the LM paths run,
 ``flash_attention_bwd_dq_simt`` and ``flash_attention_bwd_dkv_simt`` the
-SIMT kernels of f32 callers, timed in f32. The ``flash_decode`` and
-``flash_attention_bwd_delta`` rows also carry ``device_ms``, the kernel's
-device time from the profiler (``device_ms``; ``flash_decode`` also SDPA's,
-``library_device_ms``): their ``ms``, from CUDA events over back-to-back
-launches, can include the card's waits for the host's launches.
+SIMT kernels of f32 callers, timed in f32. ``qdq_cast`` is the two-pass
+form the serving path launches, ``qdq_cast_one_pass`` the one-pass form
+the LM path's tier-0 set launches, both timed over the 11 leaves, f32 in
+and bf16 out as those paths cast (``f32_out_*``: the same with f32 out).
+The ``flash_decode``, ``flash_attention_bwd_delta`` and both ``qdq_cast``
+rows also carry ``device_ms``, the kernel's device time from the profiler
+(``flash_decode`` also SDPA's, ``library_device_ms``): their ``ms``, from
+CUDA events over back-to-back launches, can include the card's waits for
+the host's launches.
 
 The last three lines are the ``kernels`` JSON line, the card's name and
 power limit, and ``{"ok": true, "device": {...}}``. Without a card (or
@@ -148,6 +161,8 @@ KERNELS = {
                     "src/repro/kernels/fused_update.py:317"),
     "qdq_cast": (f"{CSRC}/qdq_cast.cu",
                  "src/repro/kernels/qdq_cast.py:98"),
+    "qdq_cast_one_pass": (f"{CSRC}/qdq_cast.cu",
+                          "src/repro/kernels/qdq_cast.py:116"),
     "flash_attention": (f"{CSRC}/flash_fwd_sm90.cu",
                         "src/repro/kernels/flash_attention.py:222"),
     "flash_attention_simt": (f"{CSRC}/flash_attention.cu",
@@ -892,11 +907,85 @@ def _lm_leaves():
     return [tuple(x.shape) for x in tu.leaves(params)]
 
 
+def _device_ops(fn):
+    """Names of the operations one ``fn()`` call puts on the card
+    (``torch.profiler``, after a warm-up call; a trace that came back
+    empty is taken again, as in ``device_ms``)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+        if names:
+            return names
+    return []
+
+
+def _qdq_edges(dev, ops, qc) -> int:
+    """The kernel against its plain version at offsets 0-7 elements into a
+    buffer (every alignment of x against the fresh output), sizes around
+    the 8-element unit, f32 and bf16 in and out, NaN and +-inf in x, both
+    ladders, no / given / too-small amax, codes 0/1/2; ten repeated calls
+    of each form bitwise equal. Returns the cases checked."""
+    gen = torch.Generator(device=dev).manual_seed(6)
+    edges = torch.tensor([float("nan"), float("inf"), -float("inf"), 7e4,
+                          -1e-30, 448.0, 12.0], device=dev)
+    amaxes = (None, torch.tensor(9.5, device=dev),
+              torch.tensor(0.5, device=dev))
+    n_cases = 0
+    for n in (0, 1, 7, 8, 9, 15, 16, 17, 1_048_579):
+        buf32 = torch.randn((n + 8,), generator=gen, device=dev) * 3.0
+        if n > 64:
+            buf32[n // 2:n // 2 + len(edges)] = edges
+        for dtype in (torch.float32, torch.bfloat16):
+            buf = buf32.to(dtype)
+            for off in range(8):
+                x = buf[off:off + n]
+                for out_dtype in (torch.float32, torch.bfloat16):
+                    for ladder in ("tpu", "gpu"):
+                        for amax in amaxes:
+                            for code in (0, 1, 2):
+                                got = ops.qdq_cast(x, code, ladder, amax,
+                                                   out_dtype=out_dtype)
+                                want = qc.qdq_cast_ref(x, code, ladder, amax,
+                                                       out_dtype=out_dtype)
+                                check(got.dtype == out_dtype
+                                      and got.shape == x.shape
+                                      and same(got, want),
+                                      f"qdq_cast n={n} off={off} {dtype} -> "
+                                      f"{out_dtype} {ladder} amax={amax} "
+                                      f"code={code}")
+                                n_cases += 1
+    x = (torch.randn((1_048_582,), generator=gen, device=dev) * 3.0)[3:]
+    for amax in (None, x.abs().amax()):
+        first = ops.qdq_cast(x, 0, "tpu", amax, out_dtype=torch.bfloat16)
+        for _ in range(9):
+            again = ops.qdq_cast(x, 0, "tpu", amax, out_dtype=torch.bfloat16)
+            check(torch.equal(again.view(torch.int16),
+                              first.view(torch.int16)),
+                  f"qdq_cast repeats bitwise (amax={amax is not None})")
+    return n_cases
+
+
 def check_qdq(dev, bw, ops_rate):
     """qdq_cast bitwise against its plain version over every variant
     (ladders, codes, f32/bf16, tile-filling and ragged sizes, no / given /
-    too-small amax with the NaN rule), then at the main path's shapes:
-    the tier-0 cast of all of smollm-135m's leaves, timed whole."""
+    too-small amax with the NaN rule) and the edge cases (``_qdq_edges``),
+    each form's device operations per call, then at the main paths'
+    shapes: the tier-0 cast of all of smollm-135m's leaves, timed whole by
+    CUDA events and by the profiler's device time. Rows 3 and 4 of
+    ``PERF.md`` (f32 in and out): the two-pass form, and the one-pass form
+    with each leaf's absmax given. Row 3b, the serving tier-0 weight set
+    (f32 in, bf16 out): the cast then ``.to(bf16)`` against the bf16
+    output written directly, timed in turns. Yardsticks: the kernel as a
+    copy (code 2) beside ``torch.clone``. -> the ``kernels`` line's rows
+    ``qdq_cast`` (the serving path's two-pass cast, bf16 out) and
+    ``qdq_cast_one_pass`` (the LM path's cast from the trainer's table)."""
     from repro_torch.kernels import ops
     from repro_torch.kernels import qdq_cast as qc
     gen = torch.Generator(device=dev).manual_seed(5)
@@ -920,48 +1009,132 @@ def check_qdq(dev, bw, ops_rate):
     nan = ops.qdq_cast(small, 0, "tpu", torch.tensor(4.0, device=dev))
     check(bool(torch.isnan(nan[:2]).all()) and not bool(torch.isnan(nan[2])),
           "qdq_cast: NaN past 464 on the tpu ladder")
-    log(f"qdq_cast: {n} variants bitwise equal to the plain version")
+    edges = _qdq_edges(dev, ops, qc)
+    log(f"qdq_cast: {n} variants and {edges} edge cases (offsets 0-7, sizes "
+        "0-17 and 1,048,579, f32/bf16 in and out, NaN/inf, ten repeats) "
+        "bitwise equal to the plain version")
 
-    # main path: every leaf of the full-width model, f32 in and out
+    # main path: every leaf of the full-width model, f32 in
     xs = [torch.randn(s, generator=gen, device=dev) * 0.05
           for s in _lm_leaves()]
+    amaxes = [x.abs().amax() for x in xs]
+    big = max(xs, key=lambda t: t.numel())
+    norm = min(xs, key=lambda t: t.numel())
+    for x in (big, norm):
+        for form, amax in (("two_pass", None), ("one_pass", x.abs().amax())):
+            names = _device_ops(lambda: ops.qdq_cast(
+                x, 0, "tpu", amax, out_dtype=torch.bfloat16))
+            log(f"qdq_cast {form} call on {tuple(x.shape)}: {len(names)} "
+                f"device operation(s) {names}")
+            check(len(names) == 1 and "qdq_kernel" in names[0],
+                  f"qdq_cast {form}: one device operation a call")
+            # the kernel's TWO_PASS template argument is the form counted
+            check(f"{str(form == 'two_pass').lower()}>" in names[0],
+                  f"qdq_cast {form}: the launched kernel is that form")
     err = 0.0
-    for x in xs:
-        got = ops.qdq_cast(x, 0, "tpu")
-        want = qc.qdq_cast_ref(x, 0, "tpu")
-        check(same(got, want), f"qdq_cast leaf {tuple(x.shape)}")
-        err = max(err, abs_err(got, want))
+    for x, a in zip(xs, amaxes):
+        for amax in (None, a):
+            for out_dtype in (torch.float32, torch.bfloat16):
+                got = ops.qdq_cast(x, 0, "tpu", amax, out_dtype=out_dtype)
+                want = qc.qdq_cast_ref(x, 0, "tpu", amax, out_dtype=out_dtype)
+                check(same(got, want), f"qdq_cast leaf {tuple(x.shape)} "
+                      f"amax={amax is not None} {out_dtype}")
+                err = max(err, abs_err(got, want))
     lib = qc._lib()
-    outs = [torch.empty_like(x) for x in xs]
-    scratch = torch.empty((1,), device=dev)
+    grid = lib.tri_qdq_cast_max_grid()
+    partials = torch.empty((grid,), dtype=torch.int32, device=dev)
+    outs = {d: [torch.empty(x.shape, dtype=d, device=dev) for x in xs]
+            for d in (torch.float32, torch.bfloat16)}
     stream = torch.cuda.current_stream().cuda_stream
+    bf = torch.bfloat16
 
-    def raw():          # the kernel alone: no checks, no allocation
-        for x, o in zip(xs, outs):
-            lib.tri_qdq_cast(x.data_ptr(), 0, x.numel(), 0, 1, None,
-                             scratch.data_ptr(), o.data_ptr(), stream)
+    def raw(out_dtype, code=0, given=False):
+        """The kernel alone, no checks, no allocation: one call a leaf."""
+        oc = qc._DTYPE_CODE[out_dtype]
 
-    amaxes = [x.abs().amax().reshape(1) for x in xs]
+        def run():
+            for x, o, a in zip(xs, outs[out_dtype], amaxes):
+                lib.tri_qdq_cast(x.data_ptr(), 0, o.data_ptr(), oc,
+                                 x.numel(), code, 1,
+                                 a.data_ptr() if given else None,
+                                 int(qc.form(code, "tpu", a if given
+                                             else None) == "two_pass"),
+                                 partials.data_ptr(), grid, stream)
+        return run
 
-    def raw_given():    # the single-phase form: each leaf's absmax given
-        for x, o, a in zip(xs, outs, amaxes):
-            lib.tri_qdq_cast(x.data_ptr(), 0, x.numel(), 0, 1, a.data_ptr(),
-                             scratch.data_ptr(), o.data_ptr(), stream)
+    def plain(out_dtype, given=False):
+        return lambda: [qc.qdq_cast_ref(x, 0, "tpu", a if given else None,
+                                        out_dtype=out_dtype)
+                        for x, a in zip(xs, amaxes)]
 
-    ms = time_ms(raw, iters=10)
-    plain_ms = time_ms(lambda: [qc.qdq_cast_ref(x, 0, "tpu") for x in xs],
-                       iters=2, reps=3)
-    ms1 = time_ms(raw_given, iters=10)
-    plain1 = time_ms(lambda: [qc.qdq_cast_ref(x, 0, "tpu", a)
-                              for x, a in zip(xs, amaxes)], iters=2, reps=3)
     elems = sum(x.numel() for x in xs)
-    b_ms, by = bound(8.0 * elems, 6.0 * elems, bw, ops_rate)
-    log(f"qdq_cast, tier-0 cast of {len(xs)} leaves ({elems} f32): kernel "
-        f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({by}); "
-        f"with each leaf's amax given (single phase): kernel {ms1:.4f} ms, "
-        f"plain {plain1:.4f} ms")
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": b_ms, "bound_by": by, "library_ms": None}
+
+    def bnd(per_elem):
+        return bound(per_elem * elems, 6.0 * elems, bw, ops_rate)
+
+    t = {}
+    for key, fn in (("two", raw(torch.float32)),
+                    ("one", raw(torch.float32, given=True)),
+                    ("two_bf", raw(bf)), ("one_bf", raw(bf, given=True)),
+                    ("copy", raw(torch.float32, code=2))):
+        t[key] = (time_ms(fn, iters=10), device_ms(fn, iters=10))
+    t["clone"] = (time_ms(lambda: [x.clone() for x in xs], iters=10),
+                  device_ms(lambda: [x.clone() for x in xs], iters=10))
+    # row 3b: the serving set as the cast then .to(bf16), against the bf16
+    # output written directly, in turns (chain, direct, direct, chain)
+    chain = lambda: [ops.qdq_cast(x, 0, "tpu").to(bf) for x in xs]  # noqa
+    direct = lambda: [ops.qdq_cast(x, 0, "tpu", out_dtype=bf)  # noqa
+                      for x in xs]
+    turns = [time_ms(f, iters=5, reps=3) for f in (chain, direct, direct,
+                                                   chain)]
+    dev_chain, dev_direct = device_ms(chain, 5), device_ms(direct, 5)
+    p = {"two": time_ms(plain(torch.float32), iters=2, reps=3),
+         "one": time_ms(plain(torch.float32, True), iters=2, reps=3),
+         "two_bf": time_ms(plain(bf), iters=2, reps=3),
+         "one_bf": time_ms(plain(bf, True), iters=2, reps=3)}
+    b8, b12, b10, b6 = bnd(8.0), bnd(12.0), bnd(10.0), bnd(6.0)
+    log(f"qdq_cast, tier-0 cast of {len(xs)} leaves ({elems} f32 weights), "
+        f"ms by events (device ms by the profiler), plain version beside:")
+    log(f"  row 3, two-pass, f32 out: {t['two'][0]:.4f} ({t['two'][1]:.4f}),"
+        f" plain {p['two']:.4f}; bound {b8[0]:.4f} (8 B an element), "
+        f"{b12[0]:.4f} for a design that reads x twice (12 B)")
+    log(f"  row 4, one-pass (each leaf's amax given), f32 out: "
+        f"{t['one'][0]:.4f} ({t['one'][1]:.4f}), plain {p['one']:.4f}; "
+        f"bound {b8[0]:.4f} (8 B)")
+    log(f"  row 3b, bf16 out: two-pass {t['two_bf'][0]:.4f} "
+        f"({t['two_bf'][1]:.4f}), plain {p['two_bf']:.4f}; one-pass "
+        f"{t['one_bf'][0]:.4f} ({t['one_bf'][1]:.4f}), plain "
+        f"{p['one_bf']:.4f}; bound {b6[0]:.4f} (6 B an element), "
+        f"{b10[0]:.4f} for a design that reads x twice (10 B)")
+    log(f"  row 3b, the serving set through ops.qdq_cast, in turns: cast + "
+        f".to(bf16) {turns[0]:.4f} / {turns[3]:.4f} (device "
+        f"{dev_chain:.4f}), bf16 written directly {turns[1]:.4f} / "
+        f"{turns[2]:.4f} (device {dev_direct:.4f})")
+    log(f"  yardsticks: the kernel as a copy (code 2, f32) {t['copy'][0]:.4f}"
+        f" ({t['copy'][1]:.4f}), torch's clone {t['clone'][0]:.4f} "
+        f"({t['clone'][1]:.4f})")
+    common = {"max_abs_err": err, "library_ms": None}
+    rows = {
+        "qdq_cast": {"ms": t["two_bf"][0], "plain_ms": p["two_bf"],
+                     "bound_ms": b6[0], "bound_by": b6[1],
+                     "reread_bound_ms": b10[0],
+                     "device_ms": t["two_bf"][1],
+                     "f32_out_ms": t["two"][0],
+                     "f32_out_device_ms": t["two"][1],
+                     "f32_out_plain_ms": p["two"],
+                     "f32_out_bound_ms": b8[0],
+                     "f32_out_reread_bound_ms": b12[0],
+                     "chain_ms": [turns[0], turns[3]],
+                     "direct_ms": [turns[1], turns[2]],
+                     "copy_ms": t["copy"][0], "clone_ms": t["clone"][0]},
+        "qdq_cast_one_pass": {"ms": t["one_bf"][0], "plain_ms": p["one_bf"],
+                              "bound_ms": b6[0], "bound_by": b6[1],
+                              "device_ms": t["one_bf"][1],
+                              "f32_out_ms": t["one"][0],
+                              "f32_out_device_ms": t["one"][1],
+                              "f32_out_plain_ms": p["one"],
+                              "f32_out_bound_ms": b8[0]}}
+    return {k: {**common, **v} for k, v in rows.items()}
 
 
 def _segments(B, S, dev, seed):
@@ -1878,7 +2051,50 @@ def lm_train_main_path():
     log(f"  codes {tr.state.control.codes.tolist()}, fisher curvature per "
         f"layer {[float(f'{x:.3g}') for x in lam.tolist()]}")
     log(f"  launches {launches}")
-    return tr, launches
+    return tr, launches, lm_serving_set(tr)
+
+
+def lm_serving_set(tr) -> int:
+    """The one-pass form's path, at the end of the LM training path: the
+    tier-0 serving weight set built from the trained masters with the
+    trainer's absmax table (``Trainer.serving_amax_tree``, from the fused
+    step's carried per-layer ``p_amax``), as ``ServeEngine(amax_tree=...)``
+    builds it: one one-pass launch a leaf, bf16 written directly. Each
+    amax must bound its leaf's absmax of the bf16-cast master, and each
+    leaf equal the plain version with the same amax, bitwise. -> the
+    one-pass launches."""
+    from repro_torch import tree as tu
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import qdq_cast as qc
+    from repro_torch.serve.engine import tier_params
+    bf = torch.bfloat16
+    params = tr.params_tree()
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    amax_tree = tr.serving_amax_tree()
+    w0 = tier_params(params, 0, "tpu", amax_tree=amax_tree)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    leaves, amaxes = tu.leaves(params), tu.leaves(amax_tree)
+    check(launches["qdq_cast_one_pass"] == launches["qdq_cast"]
+          == len(leaves) == len(_lm_leaves())
+          and launches["qdq_cast_two_pass"] == 0,
+          f"one one-pass launch a leaf: {launches}")
+    for leaf, a, w in zip(leaves, amaxes, tu.leaves(w0)):
+        what = f"tier-0 leaf {tuple(leaf.shape)} from the table"
+        true = leaf.to(bf).float().abs().max()
+        check(float(a) >= float(true), f"{what}: amax {float(a)} bounds "
+              f"{float(true)}")
+        want = qc.qdq_cast_ref(leaf.float(), 0, "tpu", a, out_dtype=bf)
+        check(w.dtype == bf and same(w, want), what)
+        check(bool(torch.isfinite(w).all()), f"{what} finite")
+    log(f"LM tier-0 serving set from Trainer.serving_amax_tree: "
+        f"{len(leaves)} leaves in {wall * 1e3:.2f} ms (table included), "
+        f"bitwise equal to the plain version; launches "
+        f"{ {k: v for k, v in launches.items() if v} }")
+    return launches["qdq_cast_one_pass"]
 
 
 def time_lm_rungs(tr, per_rung: int = 6):
@@ -2213,8 +2429,9 @@ def serve_main_path(seed: int = 0):
           f"every prefill forward on the tensor-core route: {launches}")
     check(launches["flash_decode"] == n_layers * runs["decode"],
           f"flash_decode launches {launches} vs {runs}")
-    check(launches["qdq_cast"] == len(_lm_leaves()),
-          f"qdq_cast launches {launches} vs the tier-0 leaves")
+    check(launches["qdq_cast"] == launches["qdq_cast_two_pass"]
+          == len(_lm_leaves()),
+          f"qdq_cast launches {launches} vs the tier-0 leaves (two-pass)")
     check(any(t == 0 for _, t in stats["tier_history"]), "fp8 tier decoded")
     check(max(r for _, r in stats["rung_history"]) == 4, "rung reached 4")
     tokens = stats["decoded_tokens"]
@@ -2358,7 +2575,7 @@ def main() -> int:
     res["fused_apply@lm_train"] = check_apply_main(
         lm_view, dev, bw, f32_ops, what="smollm-135m", **lm_var)
     del lm_view
-    res["qdq_cast"] = check_qdq(dev, bw, f32_ops)
+    res.update(check_qdq(dev, bw, f32_ops))
     res.update(check_flash(dev, bw, f32_ops, tc_ops))
     res["flash_decode"] = check_decode(dev, bw, tc_ops)
     delta_err = check_delta(dev)
@@ -2390,7 +2607,8 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     t_phase = time.perf_counter()
-    lm_tr, lm_launches = lm_train_main_path()
+    lm_tr, lm_launches, one_pass = lm_train_main_path()
+    launches["qdq_cast_one_pass"] = one_pass
     # a kernel that runs on two paths at different shapes has a row for
     # each: its launches on that path beside its time at that path's shape
     launches["flash_attention"] = serve_launches["flash_attention"]

@@ -6,7 +6,9 @@ tensor goes to the hand-written CUDA kernel, or the call raises. Nothing
 falls back on a missing card. Each wrapper counts its kernel launches in
 ``LAUNCHES`` (a plain integer per kernel, bumped only where the kernel is
 launched), so a run can show that the main path went through the kernels.
-The flash forward also counts by route (``flash_attention_tc``,
+``qdq_cast`` also counts by form (``qdq_cast_two_pass``,
+``qdq_cast_one_pass``: ``qdq_cast.form``) beside its total. The flash
+forward counts by route (``flash_attention_tc``,
 ``flash_attention_simt``: ``flash_attention.fwd_route``) beside its total,
 and so do the backward's dQ and dK/dV (``flash_attention_bwd_dq_tc`` /
 ``_simt``, ``flash_attention_bwd_dkv_tc`` / ``_simt``:
@@ -40,6 +42,7 @@ from repro_torch.kernels import qdq_cast as _qc
 
 #: kernel name -> launches since the last ``reset_launches()``
 LAUNCHES = {"fused_stats": 0, "fused_apply": 0, "qdq_cast": 0,
+            "qdq_cast_two_pass": 0, "qdq_cast_one_pass": 0,
             "grad_stats": 0, "flash_attention": 0,
             "flash_attention_tc": 0, "flash_attention_simt": 0,
             "flash_attention_bwd_delta": 0,
@@ -85,13 +88,16 @@ def fused_apply(g_slab, p_slab, m_slab, v_slab, scalars, row_layer,
     return out
 
 
-def qdq_cast(x, code, ladder: str = "tpu", amax=None):
+def qdq_cast(x, code, ladder: str = "tpu", amax=None, *, out_dtype=None):
     """Round ``x`` (any shape, f32 or bf16) to the tier grid ``code``
-    picks; ``amax`` replaces the tensor's own absmax (tpu ladder)."""
+    picks; ``amax`` replaces the tensor's own absmax (tpu ladder). The
+    result is written as ``out_dtype`` (default: ``x``'s type)."""
     if x.device.type == "cpu":
-        return _qc.qdq_cast_ref(x, code, ladder, amax)
-    out = _qc.qdq_cast_cuda(x, code, ladder, amax)
-    LAUNCHES["qdq_cast"] += 1
+        return _qc.qdq_cast_ref(x, code, ladder, amax, out_dtype=out_dtype)
+    out = _qc.qdq_cast_cuda(x, code, ladder, amax, out_dtype=out_dtype)
+    if x.numel():                   # an empty tensor launches nothing
+        LAUNCHES["qdq_cast"] += 1
+        LAUNCHES[f"qdq_cast_{_qc.form(code, ladder, amax)}"] += 1
     return out
 
 

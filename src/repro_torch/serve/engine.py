@@ -45,8 +45,8 @@ def tier_params(params, tier: int, ladder: str = "tpu", amax_tree=None):
             return x.float()
         if tier == 1:
             return x.to(torch.bfloat16)
-        return ops.qdq_cast(x.float(), 0, ladder=ladder,
-                            amax=amax).to(torch.bfloat16)
+        return ops.qdq_cast(x.float(), 0, ladder=ladder, amax=amax,
+                            out_dtype=torch.bfloat16)
     if amax_tree is not None:
         return tu.tree_map(one, params, amax_tree)
     return tu.tree_map(one, params)

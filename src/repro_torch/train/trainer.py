@@ -144,6 +144,19 @@ class Trainer:
             return self.state.params
         return self.view.unpack(self.state.params, like=self._params_like)
 
+    def serving_amax_tree(self):
+        """Per-leaf absmax of the live master weights, from the fused
+        step's carried per-layer table (the max over a leaf's layers of the
+        container-cast master): hand it to ``ServeEngine(amax_tree=...)``
+        or ``tier_params`` so the tier-0 cast takes the one-pass form. None
+        on the reference path (the cast then finds its own absmax). The
+        fused path is always slab-resident here: the tree-form fused step
+        is not ported, and ``__init__`` refuses it."""
+        if not self.fused:
+            return None
+        return self.view.amax_tree(self.state.compute["p_amax"],
+                                   self._params_like)
+
     def _batch_for_rung(self, rung: int, step: int):
         stream = dataclasses.replace(self.stream, global_batch=rung) \
             if self.tcfg.elastic_true_batch else self.stream

@@ -59,6 +59,95 @@ def test_qdq_cast_kernel_bitwise(card, ladder, dtype):
             assert _same(got, qc.qdq_cast_ref(x, code, ladder, amax))
 
 
+QDQ_SIZES = (0, 1, 7, 8, 9, 15, 16, 17, 1_048_579)
+
+
+def _qdq_input(card, n, off, dtype, seed):
+    """``n`` elements at ``off`` elements into a larger buffer (so the
+    kernel meets every alignment); the large size holds NaN, +-inf and
+    fp16-range edges."""
+    g = torch.Generator(device=card).manual_seed(seed)
+    buf = (torch.randn((n + 8,), generator=g, device=card) * 3).to(dtype)
+    x = buf[off:off + n]
+    edges = torch.tensor([float("nan"), float("inf"), -float("inf"), 7e4,
+                          -1e-30, 448.0, 12.0], device=card).to(dtype)
+    if n > 64:
+        x[n // 2:n // 2 + len(edges)] = edges
+    return x
+
+
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_qdq_cast_kernel_offsets_sizes_and_output_type(card, dtype,
+                                                       out_dtype):
+    """Both forms against the plain version, bitwise (NaN equal to NaN),
+    at offsets 0-7 elements into a buffer and sizes around the 8-element
+    unit and the 16-byte boundary, with the output written as f32 or
+    bf16; a NaN in x makes the two-pass absmax NaN, whose scale is 1."""
+    for off in range(8):
+        for n in QDQ_SIZES:
+            x = _qdq_input(card, n, off, dtype, seed=n + off)
+            for ladder in ("tpu", "gpu"):
+                for amax in (None, torch.tensor(9.5, device=card),
+                             torch.tensor(0.5, device=card)):
+                    for code in (0, 1, 2):
+                        got = ops.qdq_cast(x, code, ladder, amax,
+                                           out_dtype=out_dtype)
+                        want = qc.qdq_cast_ref(x, code, ladder, amax,
+                                               out_dtype=out_dtype)
+                        assert got.dtype == out_dtype
+                        assert got.shape == x.shape
+                        assert _same(got, want), (off, n, ladder, amax,
+                                                  code)
+
+
+def test_qdq_cast_kernel_repeats_bitwise_and_counts_by_form(card):
+    """Ten calls of each form give the same bits; each call counts one
+    launch in ``qdq_cast`` and one under its form, an empty tensor none."""
+    g = torch.Generator(device=card).manual_seed(3)
+    x = torch.randn((1_048_579,), generator=g, device=card)
+    amax = x.abs().amax()
+    for form, args in (("two_pass", (0, "tpu", None)),
+                       ("one_pass", (0, "tpu", amax)),
+                       ("one_pass", (0, "gpu", None)),
+                       ("one_pass", (1, "tpu", None))):
+        before = dict(ops.LAUNCHES)
+        first = ops.qdq_cast(x, *args, out_dtype=torch.bfloat16)
+        for _ in range(9):
+            again = ops.qdq_cast(x, *args, out_dtype=torch.bfloat16)
+            assert torch.equal(again.view(torch.int16),
+                               first.view(torch.int16))
+        grew = {k: ops.LAUNCHES[k] - before[k] for k in before
+                if ops.LAUNCHES[k] != before[k]}
+        assert grew == {"qdq_cast": 10, f"qdq_cast_{form}": 10}, args
+    before = dict(ops.LAUNCHES)
+    assert ops.qdq_cast(x[:0], 0).shape == (0,)
+    assert ops.LAUNCHES == before
+
+
+@pytest.mark.parametrize("n", [576, 1_048_579])
+def test_qdq_cast_kernel_is_one_device_operation(card, n):
+    """Each form is one operation on the card a call: no memset, no second
+    kernel (``torch.profiler``; inputs and outputs made outside)."""
+    from torch.profiler import ProfilerActivity, profile
+    g = torch.Generator(device=card).manual_seed(4)
+    x = torch.randn((n,), generator=g, device=card)
+    amax = x.abs().amax()
+    for args in ((0, "tpu", None), (0, "tpu", amax)):
+        ops.qdq_cast(x, *args)
+        torch.cuda.synchronize()
+        for _ in range(3):      # a trace that came back empty is taken again
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                ops.qdq_cast(x, *args)
+                torch.cuda.synchronize()
+            dev = [e.name for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA]
+            if dev:
+                break
+        assert len(dev) == 1 and "qdq_kernel" in dev[0], dev
+
+
 @pytest.mark.parametrize("shape", [(64,), (513, 129), (1024, 512),
                                    (7, 3, 5), (8,), (0,), (1_000_000,)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,

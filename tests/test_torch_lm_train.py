@@ -413,6 +413,69 @@ def test_resident_lm_step_matches_reference(ref, ref_step, case):
                                rtol=1e-2)
 
 
+# ------------------------------------------------- serving amax table --
+def test_serving_amax_tree_feeds_tier_params():
+    """As the reference's ``tests/test_fused_update.py::
+    test_serving_amax_tree_feeds_tier_params``: after two fused steps on
+    the tpu ladder the carried table bounds every leaf's true absmax of
+    the bf16-cast master, and the tier-0 weight set built from it equals
+    ``qdq_cast`` with the same amax, bitwise (the reference's tier-0 set
+    with a given table: ``tests/test_torch_qdq_cast_out.py``). None on the
+    reference path."""
+    from repro_torch.serve import engine
+    task = LMTask(conf.flash_test_config(2), device="cpu")
+    tac = TriAccelConfig(ladder="tpu", t_ctrl=1000, enable_curvature=False,
+                         enable_batch=False, mem_cap_bytes=8e9)
+    tcfg = TrainerConfig(total_steps=2, seq_len=S, rungs=(B,),
+                         log_every=1000)
+    tr = Trainer(task, tac, tcfg, device="cpu")
+    tr.run(2)
+    amax_tree = tr.serving_amax_tree()
+    params = tr.params_tree()
+    leaves, amaxes = tu.leaves(params), tu.leaves(amax_tree)
+    assert len(leaves) == len(amaxes)
+    for leaf, amax in zip(leaves, amaxes):
+        true = leaf.detach().to(torch.bfloat16).float().abs().max()
+        assert amax.shape == () and float(amax) >= float(true)
+    got = engine.tier_params(params, 0, "tpu", amax_tree=amax_tree)
+    for leaf, amax, want in zip(leaves, amaxes, tu.leaves(got)):
+        direct = ops.qdq_cast(leaf.detach().float(), 0, "tpu", amax)
+        assert torch.equal(want.view(torch.int16),
+                           direct.to(torch.bfloat16).view(torch.int16))
+    off = Trainer(task, tac, TrainerConfig(seq_len=S, rungs=(B,),
+                                           fused_update=False),
+                  device="cpu")
+    assert off.serving_amax_tree() is None
+
+
+def test_serving_amax_tree_matches_reference_on_a_bridged_state(ref,
+                                                                 ref_step):
+    """The port's table on the reference's state after one resident step,
+    bridged as in ``test_resident_lm_step_matches_reference``, equals the
+    reference's, leaf for leaf: held against the reference's
+    ``view.amax_tree`` over the same ``p_amax`` (a reference ``Trainer``
+    would compile its whole step again)."""
+    L = ref_step["L"]
+    jstate = ref_step["state_for"](jnp.ones(L, jnp.int32),
+                                   jnp.asarray(np.float32(2.0 ** 15)))
+    js, _ = jax.device_get(ref_step["step"](jstate, ref["batch"]))
+    want = jslab_view(ref["params"], ref["grouping"]).amax_tree(
+        jnp.asarray(js.compute["p_amax"]), ref["params"])
+    tr = Trainer(LMTask(conf.flash_test_config(2), device="cpu"),
+                 TriAccelConfig(**TAC), TrainerConfig(seq_len=S,
+                                                      rungs=(B,)),
+                 device="cpu")
+    tr.state = bridge.train_state(js.params, js.aux_state, js.opt_state,
+                                  js.control._asdict(), js.compute)
+    got = tr.serving_amax_tree()
+    wl = jax.tree.leaves(jax.device_get(want))
+    gl = tu.leaves(got)
+    assert len(wl) == len(gl) == len(tu.leaves(tr.params_tree()))
+    for w, g in zip(wl, gl):
+        assert g.dtype == torch.float32 and g.shape == ()
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+
+
 # -------------------------------------------------------------- launcher --
 def test_launcher_trains_on_the_cpu(capsys):
     tr = launch_train.main(["--arch", "smollm-135m", "--reduced",
