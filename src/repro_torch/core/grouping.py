@@ -1,13 +1,14 @@
 """Per-layer parameter grouping — maps model param trees to the (L,) layer
 vectors the Tri-Accel controller operates on: ``flat_grouping`` (vision,
-by sorted top-level keys) and ``lm_grouping`` (LM stacks).
+by sorted top-level keys) and ``lm_grouping`` (LM stacks); and
+``layer_select_fns``, the per-layer path predicates of power iteration.
 
 Layer order for LMs: all stack layers in network order, then one
 pseudo-layer for the embedding group, then one for the head (final norm /
 unembed)."""
 from __future__ import annotations
 
-from typing import Callable, List
+from typing import Callable, Dict, List
 
 import numpy as np
 import torch
@@ -157,3 +158,13 @@ def lm_grouping(params, stack_cfg) -> LayerGrouping:
     return LayerGrouping(total, sums_fn,
                          torch.tensor(counts, dtype=torch.float32),
                          names + ["embed", "head"], broadcast_fn)
+
+
+def layer_select_fns(grouping_names: List[str], params_shape,
+                     stack_cfg=None) -> Dict[str, Callable]:
+    """Path predicates for paper-faithful per-layer power iteration
+    (vision): top-level key -> ``pred(path)``, true on that key's leaves
+    (a path is the tuple of keys ``tree.paths`` gives)."""
+    def make(key):
+        return lambda path: len(path) > 0 and path[0] == key
+    return {k: make(k) for k in sorted(params_shape.keys())}

@@ -1,6 +1,6 @@
 """Architecture registry: --arch ids -> config modules and tasks, as
 ``repro/models/registry.py``. The port trains and serves ``smollm-135m``
-and trains ``resnet18``; the other architectures raise
+and trains ``resnet18`` and ``efficientnet_b0``; the other architectures raise
 ``NotImplementedError`` until the slice that brings them."""
 from __future__ import annotations
 
@@ -8,7 +8,8 @@ import importlib
 from typing import Any, List
 
 #: ported architectures -> their config module under ``repro_torch.configs``
-PORTED = {"smollm-135m": "smollm_135m", "resnet18": "resnet18"}
+PORTED = {"smollm-135m": "smollm_135m", "resnet18": "resnet18",
+          "efficientnet_b0": "efficientnet_b0"}
 
 #: the reference's other architectures and the slice that ports each
 PENDING = {
@@ -21,7 +22,6 @@ PENDING = {
     "mamba2-370m": "the SSM slice",
     "seamless-m4t-large-v2": "the encoder-decoder slice",
     "recurrentgemma-2b": "the RG-LRU slice",
-    "efficientnet_b0": "the EfficientNet-B0 slice of the vision path",
 }
 
 

@@ -1,10 +1,13 @@
-"""ResNet-18 in PyTorch — the paper's own testbed (CIFAR-class inputs,
-BatchNorm with running stats).
+"""ResNet-18 and EfficientNet-B0 in PyTorch — the paper's own testbeds
+(CIFAR-class inputs, BatchNorm with running stats).
 
 The reference's layouts hold at every public function: images and
 activations are NHWC, conv kernels HWIO, so params (and slab rows) match
 the reference element for element. Inside, ``conv`` permutes to
 NCHW/OIHW views (NHWC memory is channels_last, so no copy is made).
+
+EfficientNet-B0's depthwise convs take HWIO kernels ``(k, k, 1, mid)``,
+which ``conv`` permutes to OIHW ``(mid, 1, k, k)`` for ``groups=mid``.
 
 Two numerics follow the reference rather than torch's habits:
   * "SAME" padding as JAX computes it: a stride-2 3x3 conv over an even
@@ -30,7 +33,7 @@ from repro_torch.nn.module import param
 
 @dataclasses.dataclass(frozen=True)
 class VisionConfig:
-    name: str                       # "resnet18" ("efficientnet_b0" not yet)
+    name: str                       # "resnet18" | "efficientnet_b0"
     num_classes: int = 10
     stem_stride: int = 1            # 1 for CIFAR 32x32, 2 for 224x224
     bn_momentum: float = 0.9
@@ -164,19 +167,110 @@ def resnet18_apply(p, s, x, train, cfg: VisionConfig):
     return logits, ns
 
 
-def _not_ported(name: str):
-    return NotImplementedError(
-        f"vision model {name!r} is not ported yet (ROADMAP A5: only "
-        "resnet18 runs on the PyTorch port)")
+# --------------------------------------------------------- EfficientNet ----
+# (expand_ratio, channels, repeats, stride, kernel)
+_EFFNET_B0_STAGES = [
+    (1, 16, 1, 1, 3), (6, 24, 2, 2, 3), (6, 40, 2, 2, 5), (6, 80, 3, 2, 3),
+    (6, 112, 3, 1, 5), (6, 192, 4, 2, 5), (6, 320, 1, 1, 3),
+]
+
+
+def _mbconv_init(gen, cin, cout, expand, kernel, device="cpu"):
+    mid = cin * expand
+    se = max(1, cin // 4)           # of the block's input width, not mid
+    p: Dict[str, Any] = {}
+    s: Dict[str, Any] = {}
+    if expand != 1:
+        p["expand"] = conv_init(gen, 1, 1, cin, mid, device)
+        p["bn0"], s["bn0"] = bn_init(mid, device)
+    p["dw"] = conv_init(gen, kernel, kernel, mid, mid, device, groups=mid)
+    p["bn1"], s["bn1"] = bn_init(mid, device)
+    p["se_r"] = conv_init(gen, 1, 1, mid, se, device)
+    p["se_e"] = conv_init(gen, 1, 1, se, mid, device)
+    p["project"] = conv_init(gen, 1, 1, mid, cout, device)
+    p["bn2"], s["bn2"] = bn_init(cout, device)
+    return p, s
+
+
+def _mbconv(p, s, x, stride, expand, train, mom):
+    """1x1 expand, depthwise k x k, squeeze-excite (two bias-free 1x1
+    convs on the pooled map), 1x1 project, residual when the shape
+    holds."""
+    ns: Dict[str, Any] = {}
+    h = x
+    if expand != 1:
+        h, ns["bn0"] = bn_apply(p["bn0"], s["bn0"], conv(p["expand"], h),
+                                train, mom)
+        h = F.silu(h)
+    mid = h.shape[-1]
+    h, ns["bn1"] = bn_apply(p["bn1"], s["bn1"],
+                            conv(p["dw"], h, stride, groups=mid), train, mom)
+    h = F.silu(h)
+    se = h.mean(dim=(1, 2), keepdim=True)
+    se = F.silu(conv(p["se_r"], se))
+    se = torch.sigmoid(conv(p["se_e"], se))
+    h = h * se
+    h, ns["bn2"] = bn_apply(p["bn2"], s["bn2"], conv(p["project"], h),
+                            train, mom)
+    if stride == 1 and x.shape[-1] == h.shape[-1]:
+        h = h + x
+    return h, ns
+
+
+def efficientnet_b0_init(gen: torch.Generator, cfg: VisionConfig,
+                         device="cpu"):
+    p: Dict[str, Any] = {"stem": conv_init(gen, 3, 3, 3, 32, device)}
+    s: Dict[str, Any] = {}
+    p["bn_stem"], s["bn_stem"] = bn_init(32, device)
+    cin = 32
+    for si, (expand, cout, repeats, _, kernel) in enumerate(
+            _EFFNET_B0_STAGES):
+        for bi in range(repeats):
+            p[f"s{si}b{bi}"], s[f"s{si}b{bi}"] = _mbconv_init(
+                gen, cin, cout, expand, kernel, device)
+            cin = cout
+    p["head"] = conv_init(gen, 1, 1, cin, 1280, device)
+    p["bn_head"], s["bn_head"] = bn_init(1280, device)
+    p["fc"] = {"kernel": param(gen, (1280, cfg.num_classes), "normal",
+                               1.0 / math.sqrt(1280), device),
+               "bias": param(gen, (cfg.num_classes,), "zeros",
+                             device=device)}
+    return p, s
+
+
+def efficientnet_b0_apply(p, s, x, train, cfg: VisionConfig):
+    mom = cfg.bn_momentum
+    ns: Dict[str, Any] = {}
+    h, ns["bn_stem"] = bn_apply(p["bn_stem"], s["bn_stem"],
+                                conv(p["stem"], x, cfg.stem_stride), train,
+                                mom)
+    h = F.silu(h)
+    for si, (expand, _, repeats, stride, _) in enumerate(_EFFNET_B0_STAGES):
+        for bi in range(repeats):
+            st = stride if bi == 0 else 1
+            h, ns[f"s{si}b{bi}"] = _mbconv(
+                p[f"s{si}b{bi}"], s[f"s{si}b{bi}"], h, st, expand, train,
+                mom)
+    h, ns["bn_head"] = bn_apply(p["bn_head"], s["bn_head"],
+                                conv(p["head"], h), train, mom)
+    h = F.silu(h).mean(dim=(1, 2))
+    logits = h @ p["fc"]["kernel"].to(h.dtype) + p["fc"]["bias"].to(h.dtype)
+    return logits, ns
+
+
+_MODELS = {"resnet18": (resnet18_init, resnet18_apply),
+           "efficientnet_b0": (efficientnet_b0_init, efficientnet_b0_apply)}
+
+
+def _model(name: str):
+    if name not in _MODELS:
+        raise ValueError(f"unknown vision model {name!r}")
+    return _MODELS[name]
 
 
 def vision_init(gen: torch.Generator, cfg: VisionConfig, device="cpu"):
-    if cfg.name == "resnet18":
-        return resnet18_init(gen, cfg, device)
-    raise _not_ported(cfg.name)
+    return _model(cfg.name)[0](gen, cfg, device)
 
 
 def vision_apply(params, state, images, train, cfg: VisionConfig):
-    if cfg.name == "resnet18":
-        return resnet18_apply(params, state, images, train, cfg)
-    raise _not_ported(cfg.name)
+    return _model(cfg.name)[1](params, state, images, train, cfg)

@@ -74,14 +74,26 @@ def dispatch_flags():
             getattr(_SEG_POS, "flag", False), ops.fallback_forced())
 
 
-@contextlib.contextmanager
-def dispatch_context(flags):
-    """Enter the declarations ``dispatch_flags()`` captured."""
-    from repro_torch.kernels import ops
-    std, seg, forced = flags
-    with std_positions(std), segment_positions(seg), \
-            ops.flash_fallback(forced):
-        yield
+class dispatch_context:
+    """Enter the declarations ``dispatch_flags()`` captured. Re-entrant: a
+    checkpoint's recompute context is entered once for each recompute, and
+    a double backward (the §3.2 HVP) recomputes a layer twice."""
+
+    def __init__(self, flags):
+        self.flags = flags
+        self._open: list = []
+
+    def __enter__(self):
+        from repro_torch.kernels import ops
+        std, seg, forced = self.flags
+        stack = contextlib.ExitStack()
+        stack.enter_context(std_positions(std))
+        stack.enter_context(segment_positions(seg))
+        stack.enter_context(ops.flash_fallback(forced))
+        self._open.append(stack)
+
+    def __exit__(self, *exc):
+        return self._open.pop().__exit__(*exc)
 
 
 def packed_positions(segments: torch.Tensor) -> torch.Tensor:

@@ -1,6 +1,6 @@
 """Paper-reproduction harness: AMP-static vs Tri-Accel and the Table 2
-ablations on the paper's ResNet-18 / CIFAR-class testbed, through the
-ported ``Trainer``.
+ablations on the paper's ResNet-18 and EfficientNet-B0 / CIFAR-class
+testbeds, through the ported ``Trainer``.
 
 Method wiring (Table 1 + Table 2 ablations):
     fp32          true fp32, no rounding (reference_step)  (paper FP32)
@@ -135,9 +135,6 @@ def make_trainer(method: str, arch: str = "resnet18", steps: int = 60,
                  ckpt_dir: Optional[str] = None, device="cuda"):
     """-> (trainer, task, memory model, TriAccelConfig) wired as
     ``run_method`` runs ``method``."""
-    if arch != "resnet18":
-        raise NotImplementedError(
-            f"arch {arch!r} is not ported yet (ROADMAP A5: only resnet18)")
     if method not in _PORTED_METHODS:
         raise NotImplementedError(f"unknown method {method!r}")
     cfg = VisionConfig(name=arch, num_classes=num_classes)

@@ -4,8 +4,9 @@ train step, on one device.
   * every step: the train step (``train_step.make_train_step``) — the
     slab-resident fused step, or ``reference_step`` over tree-form state
     when the update is not fused (the FP32 and static-AMP baselines);
-  * every ``t_curv`` steps: the §3.2 fisher curvature refresh on a small
-    batch;
+  * every ``t_curv`` steps: the §3.2 curvature refresh on a small batch
+    (``fisher``, or one Hutchinson probe for ``hutchinson`` and ``power``,
+    as the reference);
   * every ``t_ctrl`` steps: the §3.3 rung controller, fed the peak bytes
     measured around each rung's first step (``torch.cuda`` allocator
     statistics; the analytic model answers on the CPU);
@@ -219,16 +220,23 @@ class Trainer:
         raise err
 
     def _curvature(self, step: int):
+        """The §3.2 refresh on ``b_curv`` samples of this step's batch:
+        ``fisher``, or else (``hutchinson``, and ``power`` as the reference
+        sends it) the per-layer Hutchinson traces from one probe drawn
+        from a generator seeded with ``step``."""
         mb = self.stream.batch(step)
         small = {k: v[:self.tcfg.b_curv] for k, v in mb.items()}
-        leaves, treedef = tu.flatten(self.params_tree())
-        leaves = [l.detach().requires_grad_(True) for l in leaves]
-        params = tu.unflatten(treedef, leaves)
-        if self.tac.curvature_method != "fisher":
-            raise NotImplementedError(
-                f"curvature_method={self.tac.curvature_method!r}: only the "
-                "fisher proxy is ported (hutchinson/power need jvp-of-grad)")
-        loss = self.task.curvature_loss(params, self.state.aux_state, small)
-        grads = torch.autograd.grad(loss, leaves)
-        return curv.fisher_layer(tu.unflatten(treedef, list(grads)),
-                                 self.grouping.mean)
+        aux = self.state.aux_state
+        params = self.params_tree()          # eval boundary: one unpack
+        loss_fn = lambda p, b: self.task.curvature_loss(p, aux, b)  # noqa
+        if self.tac.curvature_method == "fisher":
+            leaves, treedef = tu.flatten(params)
+            leaves = [l.detach().requires_grad_(True) for l in leaves]
+            loss = loss_fn(tu.unflatten(treedef, leaves), small)
+            grads = torch.autograd.grad(loss, leaves)
+            return curv.fisher_layer(tu.unflatten(treedef, list(grads)),
+                                     self.grouping.mean)
+        gen = torch.Generator().manual_seed(step)
+        return curv.hutchinson_layer_traces(loss_fn, params,
+                                            self.grouping.mean, gen, 1,
+                                            small)

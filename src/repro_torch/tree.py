@@ -57,6 +57,26 @@ def leaves(tree) -> List[Any]:
     return flatten(tree)[0]
 
 
+def _paths_into(t, prefix: Tuple, out: List[Tuple]):
+    if isinstance(t, dict):
+        for k in sorted(t.keys()):
+            _paths_into(t[k], prefix + (k,), out)
+    elif isinstance(t, (list, tuple)):
+        for i, x in enumerate(t):
+            _paths_into(x, prefix + (i,), out)
+    else:
+        out.append(prefix)
+
+
+def paths(tree) -> List[Tuple]:
+    """Each leaf's path, in leaf order: the tuple of dict keys (and list
+    or tuple indices) from the root, as ``jax.tree_util``'s key paths
+    without their wrappers."""
+    out: List[Tuple] = []
+    _paths_into(tree, (), out)
+    return out
+
+
 def tree_map(fn: Callable, tree, *rest) -> Any:
     """Map ``fn`` over the leaves of ``tree`` (and of same-shaped ``rest``)."""
     ls, td = flatten(tree)

@@ -189,13 +189,20 @@ def test_entry_points_need_a_card_for_cuda(monkeypatch):
 @pytest.mark.parametrize("args", [("fp32", "resnet18"),
                                   ("triaccel", "efficientnet_b0")])
 def test_unported_methods_raise(args):
-    """EfficientNet-B0 is not ported and raises. The FP32 baseline raised
-    here until ``reference_step`` was ported: it now runs on the CPU, on
-    the reference path over tree-form state, at the fixed rung, with the
-    codes reported as fp32."""
+    """Both raised here until they were ported. The FP32 baseline now
+    runs on the CPU, on the reference path over tree-form state, at the
+    fixed rung, with the codes reported as fp32. EfficientNet-B0 now
+    trains on the resident fused path over its 21 layers (7,936 slab
+    rows); ``tests/test_torch_vision_effnet.py`` runs its ``run_method``
+    end to end."""
     if args[0] != "fp32":
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            paper_harness.run_method(*args, steps=1, device="cpu")
+        trainer = paper_harness.make_trainer(*args, steps=1, batch0=4,
+                                             device="cpu")[0]
+        assert trainer.fused and trainer.resident
+        assert (trainer.view.rows, trainer.view.num_layers) == (7936, 21)
+        log = trainer.run(1)
+        assert len(log) == 1 and np.isfinite(log[0]["loss"])
+        assert trainer.state.control.codes.shape == (21,)
         return
     trainer = paper_harness.make_trainer(*args, steps=2, batch0=4,
                                          device="cpu")[0]

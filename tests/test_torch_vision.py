@@ -110,8 +110,8 @@ def test_resnet18_init_shapes_match_reference():
     assert [tuple(s.shape) for _, s in flat] == \
         [tuple(t.shape) for t in tu.leaves(params)]
     assert len(tu.leaves(state)) == 2 * 20
-    with pytest.raises(NotImplementedError, match="not ported"):
-        tv.vision_init(torch.Generator(), VisionConfig("efficientnet_b0"))
+    with pytest.raises(ValueError, match="unknown vision model"):
+        tv.vision_init(torch.Generator(), VisionConfig("resnet50"))
 
 
 def test_resnet18_loss_and_slab_gradient_match_reference():
