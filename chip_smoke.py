@@ -115,7 +115,25 @@ Phases (any failure raises and the script exits non-zero):
      tree (f32, after the loss-scale division), counted around those calls
      and held against the plain version, timed on the largest leaf
      (smollm-135m's (49152, 576) embedding) and, for EfficientNet-B0,
-     over all 181 leaves in turn.
+     over all 181 leaves in turn;
+  8. checkpoint, resume and preemption (``repro_torch.checkpoint``, the
+     reference's on-disk format): the Tri-Accel ResNet-18 trainer with a
+     checkpoint directory for 20 steps (a generation every 10, 2 kept);
+     a fresh trainer restores on the card bitwise (every slab, padding
+     included, the control and BatchNorm state, the serving absmax table),
+     and a CPU trainer too; both card trainers take 5 more steps (the
+     restored one launching fused_stats and fused_apply once a step) and
+     their losses agree (bitwise where the card's step is deterministic,
+     else within rtol 1e-3); the keep-2 collection; a CPU-written
+     generation restored on the card bitwise. Then smollm-135m through
+     ``launch.train.main(LM_TRAIN_ARGS + ["--ckpt", dir])``: SIGTERM in
+     step 9 makes the first call checkpoint and exit with 143, the same
+     call again prints ``resumed at step 10`` and takes the last 10 steps
+     (the flash forward, its three backward kernels and the fused update
+     counted around it). For each model: the bytes of one generation, the
+     host stall of ``save()``, the background write and ``maybe_restore``
+     on the card, printed beside the card's name and power limit. The
+     checkpoints go to a temporary directory that the phase removes.
 
 A kernel that runs on several main paths at different shapes
 (fused_stats and fused_apply: ResNet-18, EfficientNet-B0 and LM training;
@@ -154,13 +172,18 @@ result.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import copy
 import gc
 import json
 import math
 import re
+import shutil
+import signal
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -231,6 +254,19 @@ def card_line() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()[0]
+
+
+@contextlib.contextmanager
+def signals_kept():
+    """Put back the SIGTERM and SIGINT handlers after a call that installs
+    the launcher's preemption handler (which chains neither SIG_DFL nor
+    Python's SIGINT handler): this script must stay killable."""
+    prev = {s: signal.getsignal(s) for s in (signal.SIGTERM, signal.SIGINT)}
+    try:
+        yield
+    finally:
+        for s, h in prev.items():
+            signal.signal(s, h)
 
 
 def ptxas_kernels(text: str):
@@ -2160,7 +2196,6 @@ def lm_train_main_path():
     recompute in backward) and each backward kernel once; the fisher probe
     runs under ``flash_fallback`` and launches none; an OOM retry would
     re-run a step (none may happen at this size)."""
-    import contextlib
     import io
     import warnings
     from repro_torch.kernels import ops
@@ -2173,7 +2208,7 @@ def lm_train_main_path():
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
         t0 = time.perf_counter()
-        with contextlib.redirect_stdout(printed):
+        with contextlib.redirect_stdout(printed), signals_kept():
             tr = launch_train.main(LM_TRAIN_ARGS, t_ctrl=LM_T_CTRL,
                                    t_curv=LM_T_CURV)
         torch.cuda.synchronize()
@@ -2405,7 +2440,6 @@ def no_triaccel_main_path(bw, f32_ops):
     Then the step time, and the port's path to ``grad_stats`` over the
     gradient tree of the trainer's next step (its loss and batch), timed
     on the largest leaf."""
-    import contextlib
     import io
     import warnings
     from repro_torch.kernels import ops
@@ -2418,7 +2452,7 @@ def no_triaccel_main_path(bw, f32_ops):
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
         t0 = time.perf_counter()
-        with contextlib.redirect_stdout(printed):
+        with contextlib.redirect_stdout(printed), signals_kept():
             tr = launch_train.main(NO_TRIACCEL_ARGS)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
@@ -2701,6 +2735,249 @@ def profile_decode(sess, steps: int = 5) -> None:
     sess.run()
 
 
+# --------------------------- phase 8: checkpoint, resume and preemption ---
+#: ResNet-18's checkpointed run: its steps, checkpoint cadence and
+#: generations kept, and the steps both trainers take after the restore
+CKPT_STEPS, CKPT_EVERY, CKPT_KEEP, CKPT_MORE = 20, 10, 2, 5
+#: the LM launcher's first call takes SIGTERM in the step before this one
+LM_CKPT_CUT = 10
+
+
+def _sync(dev) -> None:
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _generations(directory) -> list:
+    """Committed steps of a checkpoint directory; fails on a leftover
+    temporary file or directory."""
+    names = sorted(p.name for p in Path(directory).iterdir())
+    check(not any(".tmp" in n for n in names),
+          f"no temporary remnants in {names}")
+    return sorted(int(n[len("step_"):-len(".COMMITTED")]) for n in names
+                  if n.endswith(".COMMITTED"))
+
+
+def _bits(t: torch.Tensor) -> torch.Tensor:
+    ints = {1: torch.uint8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
+    return t.detach().cpu().contiguous().view(ints[t.element_size()])
+
+
+def _differing(a, b) -> list:
+    """Key paths where two trees of tensors differ in any bit (slabs
+    compared whole, padding rows included)."""
+    from repro_torch import tree as tu
+    return [k for k, x, y in zip(tu.keystrs(a), tu.leaves(a), tu.leaves(b))
+            if x.shape != y.shape or x.dtype != y.dtype
+            or not torch.equal(_bits(x), _bits(y))]
+
+
+def _save_timings(tr, directory: str, reps: int) -> dict:
+    """``reps`` saves of the trainer's state through an
+    ``AsyncCheckpointer``: the host stall of ``save()`` (unpack and the
+    device-to-host copy), then the background write (``wait()``), medians
+    in ms; the bytes of one generation, held to the master, momentum and
+    compute copy of every parameter plus 1 % (headers, control, BatchNorm
+    state)."""
+    from repro_torch import tree as tu
+    from repro_torch.checkpoint import AsyncCheckpointer
+    ckpt = AsyncCheckpointer(directory, keep=1)
+    step = int(tr.state.control.step)
+    stall, write = [], []
+    for _ in range(reps):
+        _sync(tr.device)
+        t0 = time.perf_counter()
+        ckpt.save(step, tr._save_state())
+        t1 = time.perf_counter()
+        ckpt.wait()
+        stall.append((t1 - t0) * 1e3)
+        write.append((time.perf_counter() - t1) * 1e3)
+    nbytes = sum(f.stat().st_size
+                 for f in (Path(directory) / f"step_{step:012d}").iterdir())
+    n = sum(p.numel() for p in tu.leaves(tr._params_like))
+    cp = torch.empty((), dtype=tr.task.compute_dtype).element_size()
+    want = n * (4 + 4 + cp)
+    check(want <= nbytes <= 1.01 * want,
+          f"{nbytes} bytes a generation, {want} in its three copies")
+    return {"bytes": nbytes, "stall_ms": statistics.median(stall),
+            "write_ms": statistics.median(write)}
+
+
+def checkpoint_resnet(batch0: int = 32, dev="cuda") -> dict:
+    """The paper's Tri-Accel ResNet-18 trainer (``make_trainer``, resident
+    fused step) with a checkpoint directory: ``CKPT_STEPS`` steps with a
+    generation every ``CKPT_EVERY`` and ``CKPT_KEEP`` kept; a fresh trainer
+    restores the last bitwise (every slab, padding included, ``p_amax``,
+    control, BatchNorm state, the serving absmax table), and so does one
+    on the CPU; both card trainers then take ``CKPT_MORE`` steps (the
+    restored one launching ``fused_stats`` and ``fused_apply`` once a step)
+    and their losses agree, bitwise where the card's step is deterministic,
+    else within rtol 1e-3; the live trainer's generations after them show
+    the keep-N collection; a generation the CPU trainer writes restores on
+    the card bitwise. -> the save, write and restore times and the bytes
+    of one generation."""
+    from repro_torch.checkpoint import AsyncCheckpointer
+    from repro_torch.kernels import ops
+    from repro_torch.train.paper_harness import make_trainer
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_ckpt_"))
+    run, on_cpu = str(tmp / "run"), str(tmp / "cpu")
+    try:
+        def trainer(directory, device=dev):
+            tr = make_trainer("triaccel", "resnet18", steps=CKPT_STEPS,
+                              batch0=batch0, ckpt_dir=directory,
+                              device=device)[0]
+            tr.tcfg.ckpt_keep = tr.ckpt.keep = CKPT_KEEP
+            return tr
+        live = trainer(run)
+        check(live.tcfg.ckpt_every == CKPT_EVERY, "the harness's cadence")
+        live.run(CKPT_STEPS)
+        _sync(dev)
+        check(_generations(run) == [CKPT_EVERY, CKPT_STEPS],
+              f"generations {_generations(run)}")
+        out = _save_timings(live, str(tmp / "timing"), reps=3)
+        fresh = trainer(run)
+        _sync(dev)
+        t0 = time.perf_counter()
+        step = fresh.maybe_restore()
+        _sync(dev)
+        out["restore_ms"] = (time.perf_counter() - t0) * 1e3
+        check(step == int(live.state.control.step) == CKPT_STEPS,
+              f"restored step {step}")
+        bad = _differing(fresh.state, live.state)
+        check(not bad, f"restored on the card, bitwise: {bad}")
+        check(not _differing(fresh.serving_amax_tree(),
+                             live.serving_amax_tree()), "serving table")
+        cpu = trainer(run, "cpu")
+        check(cpu.maybe_restore() == CKPT_STEPS
+              and not _differing(cpu.state, live.state),
+              "the card's generation restored on the CPU, bitwise")
+        # the rung controller's host state is in no checkpoint (nor in the
+        # reference's): the restored trainer takes the live one's, and
+        # writes nothing (the live trainer owns the directory)
+        fresh.scaler = copy.deepcopy(live.scaler)
+        fresh.measured_bytes = dict(live.measured_bytes)
+        fresh.ckpt = None
+        ops.reset_launches()
+        fresh.run(CKPT_MORE)
+        _sync(dev)
+        launches = dict(ops.LAUNCHES)
+        check(launches["fused_stats"] == launches["fused_apply"] == CKPT_MORE,
+              f"launches in {CKPT_MORE} steps after the restore: {launches}")
+        live.run(CKPT_MORE)
+        la = [m["loss"] for m in live.metrics_log[-CKPT_MORE:]]
+        lb = [m["loss"] for m in fresh.metrics_log[-CKPT_MORE:]]
+        check(all(math.isfinite(x) for x in la + lb), f"losses {la} {lb}")
+        gap = max(abs(a - b) / abs(a) for a, b in zip(la, lb))
+        bitwise = la == lb and not _differing(fresh.state, live.state)
+        check(bitwise or gap <= 1e-3, f"losses after the restore {lb} vs "
+              f"the live run's {la}")
+        check(_generations(run) == [CKPT_STEPS, CKPT_STEPS + CKPT_MORE],
+              f"keep {CKPT_KEEP}: {_generations(run)}")
+        cpu.ckpt = AsyncCheckpointer(on_cpu, CKPT_KEEP)
+        cpu.run(1)
+        fresh.tcfg.ckpt_dir = on_cpu
+        check(fresh.maybe_restore() == CKPT_STEPS + 1
+              and not _differing(fresh.state, cpu.state),
+              "a CPU-written generation restored on the card, bitwise")
+        log(f"checkpoint, ResNet-18 Tri-Accel from rung {batch0}: "
+            f"generations {CKPT_EVERY}, {CKPT_STEPS} of {CKPT_STEPS} steps, "
+            f"restored on the card and on the CPU bitwise; {CKPT_MORE} more "
+            f"steps on the restored and the live trainer: losses "
+            f"{'bitwise equal' if bitwise else f'within {gap:.3g}'} "
+            f"({lb}), launches after the restore "
+            f"{ {k: v for k, v in launches.items() if v} }; keep "
+            f"{CKPT_KEEP} left {_generations(run)}; a CPU-written "
+            f"generation restored on the card bitwise")
+        return out
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def checkpoint_lm() -> dict:
+    """smollm-135m through ``launch.train.main(LM_TRAIN_ARGS + ["--ckpt",
+    dir])``: the first call takes SIGTERM in step ``LM_CKPT_CUT - 1``
+    (as a cluster reclaiming the card would send it), checkpoints at the
+    top of the next step and exits with 143; the same call again prints
+    ``resumed at step LM_CKPT_CUT`` and takes the remaining steps, its
+    launch counts read around it (the flash forward, its three backward
+    kernels and the fused update, as in phase 5c). Then the times of a
+    save and of ``maybe_restore`` into the same trainer, which must give
+    back its state bitwise."""
+    import io
+    from repro_torch import tree as tu
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as launch_train
+    from repro_torch.train.trainer import Trainer
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_lm_ckpt_"))
+    run = str(tmp / "run")
+    argv = LM_TRAIN_ARGS + ["--ckpt", run]
+    kw = dict(t_ctrl=LM_T_CTRL, t_curv=LM_T_CURV)
+    steps = int(LM_TRAIN_ARGS[LM_TRAIN_ARGS.index("--steps") + 1])
+    dispatch = Trainer._dispatch
+
+    def sigterm_before_the_cut(self, step):
+        if step == LM_CKPT_CUT - 1:
+            signal.raise_signal(signal.SIGTERM)
+        return dispatch(self, step)
+    try:
+        code = None
+        with signals_kept(), contextlib.redirect_stdout(io.StringIO()):
+            Trainer._dispatch = sigterm_before_the_cut
+            try:
+                launch_train.main(argv, **kw)
+            except SystemExit as e:
+                code = e.code
+            finally:
+                Trainer._dispatch = dispatch
+        check(code == 143 and _generations(run) == [LM_CKPT_CUT],
+              f"preempted: exit {code}, generations {_generations(run)}")
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        printed = io.StringIO()
+        t0 = time.perf_counter()
+        with signals_kept(), contextlib.redirect_stdout(printed):
+            tr = launch_train.main(argv, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(ops.LAUNCHES)
+        lines = printed.getvalue().splitlines()
+        check(lines[0] == f"resumed at step {LM_CKPT_CUT}", f"{lines[:1]}")
+        check(int(tr.state.control.step) == steps, "all steps taken")
+        losses = [json.loads(x)["loss"] for x in lines[1:]]
+        check(losses and all(math.isfinite(x) for x in losses),
+              f"losses {losses}")
+        rest, L = steps - LM_CKPT_CUT, tr.task.cfg.num_layers
+        want = {"flash_attention": 2 * L * rest,
+                "flash_attention_tc": 2 * L * rest,
+                "flash_attention_bwd_delta": L * rest,
+                "flash_attention_bwd_dq_tc": L * rest,
+                "flash_attention_bwd_dkv_tc": L * rest,
+                "fused_stats": rest, "fused_apply": rest}
+        for k, n in want.items():
+            check(launches[k] == n, f"{k}: {launches[k]} launches after the "
+                  f"resume, expected {n}")
+        check(_generations(run) == [LM_CKPT_CUT, steps],
+              f"generations {_generations(run)}")
+        out = _save_timings(tr, str(tmp / "timing"), reps=2)
+        before = tu.tree_map(lambda x: x.clone(), tr.state)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        check(tr.maybe_restore() == steps, "restored step")
+        torch.cuda.synchronize()
+        out["restore_ms"] = (time.perf_counter() - t0) * 1e3
+        bad = _differing(tr.state, before)
+        check(not bad, f"restored on the card, bitwise: {bad}")
+        log(f"checkpoint, smollm-135m through launch.train.main("
+            f"{' '.join(argv)}): SIGTERM in step {LM_CKPT_CUT - 1}, exit "
+            f"143 with generation {LM_CKPT_CUT}; the same call again resumed "
+            f"and took {rest} steps in {wall:.2f} s (init included), losses "
+            f"{[round(x, 4) for x in losses]}, launches "
+            f"{ {k: v for k, v in launches.items() if v} }")
+        return out
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--steps", type=int, default=50,
@@ -2866,6 +3143,20 @@ def main() -> int:
     launches["grad_stats@efficientnet_b0_reference"] = gs_eff.pop("launches")
     res["grad_stats@efficientnet_b0_reference"] = gs_eff
     log(f"reference main paths in {time.perf_counter() - t_phase:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # checkpoint, resume and preemption: each resumed path with its counts
+    # read around it; the card's numbers printed beside its name and limit
+    t_phase = time.perf_counter()
+    saved = {"ResNet-18": checkpoint_resnet(args.batch0),
+             "smollm-135m": checkpoint_lm()}
+    for what, r in saved.items():
+        log(f"checkpoint, {what} ({card}): one generation {r['bytes']} "
+            f"bytes; save() host stall {r['stall_ms']:.3f} ms (unpack and "
+            f"device-to-host copy), background write {r['write_ms']:.3f} "
+            f"ms, maybe_restore on the card {r['restore_ms']:.3f} ms")
+    log(f"checkpoint phase in {time.perf_counter() - t_phase:.1f} s")
 
     rows = [{"name": rname, "route": "cuda", "source": src,
              "replaces": replaces, "launches": launches[rname],

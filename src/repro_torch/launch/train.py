@@ -1,22 +1,28 @@
 """Training launcher, as ``repro/launch/train.py``:
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-135m \
-        --seq 1024 --rungs 2,4,8 --steps 20 --ladder gpu
+        --seq 1024 --rungs 2,4,8 --steps 20 --ladder gpu --ckpt /tmp/ckpt
 
 Builds ``Trainer(get_task(arch), tac, tcfg)`` with the reference's
 Tri-Accel settings (fisher curvature, ``t_ctrl`` 20, ``t_curv`` 100,
 ``b_curv`` 2) on one device (``--device``, cuda unless told otherwise),
 runs ``--steps`` steps and prints the logged metrics as JSON lines.
 
+``--ckpt DIR`` checkpoints every ``max(50, steps // 10)`` steps and at the
+end, in the reference's format (a checkpoint of either package resumes
+here), and installs the preemption handler: SIGTERM or SIGINT checkpoints
+at the next step and exits with 143. Rerunning the same command resumes
+from the newest committed generation (``resumed at step N``) and takes
+the remaining steps.
+
 ``--no-triaccel`` turns precision, curvature, batch rungs and dynamic
 precision off: the static baseline in the model's compute dtype (bf16 for
 the LMs), trained by ``reference_step``.
 
-Not ported yet, and raising ``NotImplementedError``: ``--ckpt``
-(checkpointing, ROADMAP A7) and ``--distributed`` (``jax.distributed`` has
-no counterpart: the port runs on one device, ROADMAP A12). The
-reference's AOT rung warm-up (``warm_rungs``) and its preemption handler
-are left out: PyTorch runs eagerly, and preemption needs checkpointing.
+Not ported yet, and raising ``NotImplementedError``: ``--distributed``
+(``jax.distributed`` has no counterpart: the port runs on one device,
+ROADMAP A12). The reference's AOT rung warm-up (``warm_rungs``) is left
+out: PyTorch runs eagerly.
 """
 from __future__ import annotations
 
@@ -47,8 +53,9 @@ def _parser() -> argparse.ArgumentParser:
 
 
 def main(argv=None, **tac_overrides):
-    """Parse ``argv`` (``sys.argv`` when None), train, print the logged
-    metrics as JSON lines and return the ``Trainer``. ``tac_overrides``
+    """Parse ``argv`` (``sys.argv`` when None), resume from ``--ckpt``
+    where it holds a checkpoint, train the remaining steps, print the
+    logged metrics as JSON lines and return the ``Trainer``. ``tac_overrides``
     replace fields of the launcher's ``TriAccelConfig`` (a caller that
     wants the controls to fire within a short run lowers ``t_ctrl`` and
     ``t_curv``)."""
@@ -57,9 +64,6 @@ def main(argv=None, **tac_overrides):
         raise NotImplementedError(
             "--distributed: jax.distributed has no counterpart in the port, "
             "which runs on one device (ROADMAP A12)")
-    if args.ckpt is not None:
-        raise NotImplementedError(
-            "--ckpt: checkpointing is not ported yet (ROADMAP A7)")
     from repro_torch.core.precision import TriAccelConfig
     from repro_torch.models.registry import get_task
     from repro_torch.train.trainer import Trainer, TrainerConfig
@@ -78,9 +82,14 @@ def main(argv=None, **tac_overrides):
     tcfg = TrainerConfig(total_steps=args.steps, base_lr=args.lr,
                          warmup_steps=max(10, args.steps // 20),
                          optimizer=args.optimizer, accum=args.accum,
-                         seq_len=args.seq, rungs=rungs, log_every=10)
+                         seq_len=args.seq, rungs=rungs, ckpt_dir=args.ckpt,
+                         ckpt_every=max(50, args.steps // 10), log_every=10)
     tr = Trainer(task, tac, tcfg, device=args.device)
-    for m in tr.run(args.steps):
+    tr.install_preemption_handler()
+    start = tr.maybe_restore()
+    if start:
+        print(f"resumed at step {start}", flush=True)
+    for m in tr.run(args.steps - start):
         print(json.dumps({k: (round(v, 5) if isinstance(v, float) else v)
                           for k, v in m.items()}), flush=True)
     return tr

@@ -151,7 +151,8 @@ def make_trainer(method: str, arch: str = "resnet18", steps: int = 60,
         total_steps=steps, base_lr=0.05, warmup_steps=max(2, steps // 10),
         optimizer="sgdm", momentum=0.9, weight_decay=5e-4, grad_clip=5.0,
         seed=seed, seq_len=1, rungs=rungs, start_rung=batch0,
-        ckpt_dir=ckpt_dir, log_every=1, b_curv=tac.b_curv)
+        ckpt_dir=ckpt_dir, ckpt_every=max(10, steps // 4), log_every=1,
+        b_curv=tac.b_curv)
     trainer = Trainer(task, tac, tcfg, device=device)
     if method in ("fp32", "amp", "prec_only"):
         trainer.scaler.idx = rungs.index(batch0)  # fixed-batch baselines
@@ -162,9 +163,15 @@ def run_method(method: str, arch: str = "resnet18", steps: int = 60,
                batch0: int = 32, seed: int = 0, epoch_steps: int = 20,
                num_classes: int = 10, ckpt_dir: Optional[str] = None,
                device="cuda") -> MethodResult:
+    """Train ``method`` for ``steps`` steps and measure it. With
+    ``ckpt_dir`` the run checkpoints there and first resumes from it: only
+    the remaining steps run (``resumed_from``), and the wall time per
+    epoch covers those."""
     trainer, task, mm, tac = make_trainer(method, arch, steps, batch0, seed,
                                           num_classes, ckpt_dir, device)
-    log = trainer.run(steps)
+    resumed = trainer.maybe_restore() if ckpt_dir else 0
+    ran = max(steps - resumed, 0)
+    log = trainer.run(ran)
     wall = log[-1]["wall_s"] if log else 0.0
     frac_low = log[-1]["frac_low"] if log else 0.0
     frac_fp32 = log[-1]["frac_fp32"] if log else 0.0
@@ -184,11 +191,13 @@ def run_method(method: str, arch: str = "resnet18", steps: int = 60,
     model_time = _trajectory_time(log, method, steps, tac.ladder) / \
         max(steps, 1)
     mem_gb = mm.total(scaler.microbatch, codes=codes, ladder=tac.ladder) / 1e9
-    wall_epoch = wall * epoch_steps / max(steps, 1)
+    wall_epoch = wall * epoch_steps / max(ran, 1)
     mem_pct = mem_gb / (tac.mem_cap_bytes / 1e9)
+    # a fully resumed run (ran == 0) has no trajectory: model_time is 0,
+    # and so is the efficiency
     eff = acc / (model_time * mem_pct) if model_time * mem_pct > 0 else 0.0
     return MethodResult(method, arch, acc, wall_epoch, model_time, mem_gb,
                         eff, frac_low, frac_fp32, scaler.microbatch,
-                        [h[1] for h in scaler.history], 0, codes,
+                        [h[1] for h in scaler.history], resumed, codes,
                         dict(trainer.measured_bytes),
                         trainer.state.control.lam.tolist(), log)

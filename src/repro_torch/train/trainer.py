@@ -10,23 +10,36 @@ train step, on one device.
   * every ``t_ctrl`` steps: the §3.3 rung controller, fed the peak bytes
     measured around each rung's first step (``torch.cuda`` allocator
     statistics; the analytic model answers on the CPU);
+  * every ``ckpt_every`` steps (with ``ckpt_dir``): an async checkpoint
+    of the tree-form state in the reference's format
+    (``repro_torch.checkpoint``), and a blocking one at the end of ``run``;
+  * on SIGTERM or SIGINT (``install_preemption_handler``): a blocking
+    checkpoint at the top of the next step, then ``SystemExit(143)``;
+    ``maybe_restore`` resumes from the newest generation that verifies,
+    whichever package wrote it;
   * on ``torch.cuda.OutOfMemoryError``: poison the rung, step down and
-    re-run the same batch (data is a pure function of (seed, step)).
+    re-run the same batch (data is a pure function of (seed, step)); a
+    blocking checkpoint before an OOM on the smallest rung re-raises.
 
 PyTorch runs eagerly, so the reference's AOT executable cache has no
-counterpart. Checkpointing, fault plans and the divergence watchdog are not
-ported yet and raise when configured.
+counterpart. Fault plans and the divergence watchdog are not ported yet
+and raise when configured (ROADMAP A11).
 """
 from __future__ import annotations
 
 import dataclasses
+import signal
 import time
 from typing import Any, Dict, List, Optional
 
+import numpy as np
 import torch
 
 from repro_torch import resolve_device
 from repro_torch import tree as tu
+from repro_torch.checkpoint.checkpoint import (AsyncCheckpointer,
+                                               latest_step, manifest_keys,
+                                               restore_checkpoint)
 from repro_torch.core import curvature as curv
 from repro_torch.core.batch_scaler import BatchScaler, measured_peak_bytes
 from repro_torch.core.controller import init_control, with_curvature
@@ -36,7 +49,7 @@ from repro_torch.optim.optimizers import adamw, sgdm
 from repro_torch.train.schedules import warmup_cosine
 from repro_torch.train.train_step import (TrainState, init_compute,
                                           make_train_step, pack_state,
-                                          resolve_fused)
+                                          resolve_fused, unpack_state)
 
 
 @dataclasses.dataclass
@@ -53,7 +66,10 @@ class TrainerConfig:
     seq_len: int = 128
     rungs: tuple = (8,)
     start_rung: Optional[int] = None  # None: largest rung that fits
-    ckpt_dir: Optional[str] = None    # checkpointing: not ported yet
+    #: checkpoints (the reference's format) go here; None: no checkpoints
+    ckpt_dir: Optional[str] = None
+    ckpt_every: int = 50
+    ckpt_keep: int = 3
     log_every: int = 10
     b_curv: int = 4
     elastic_true_batch: bool = True   # paper mode: rung changes global B
@@ -81,10 +97,9 @@ class Trainer:
         if task.device != self.device:
             raise ValueError(f"task lives on {task.device}, trainer asked "
                              f"for {self.device}")
-        if tcfg.ckpt_dir is not None or fault_plan is not None:
+        if fault_plan is not None:
             raise NotImplementedError(
-                "checkpointing and fault plans are not ported yet "
-                "(ROADMAP A7, A11)")
+                "fault plans are not ported yet (ROADMAP A11)")
         set_f32_numerics(self.device)
         self.task, self.cfg, self.tac, self.tcfg = task, task.cfg, tac, tcfg
         gen = torch.Generator().manual_seed(tcfg.seed)
@@ -134,6 +149,9 @@ class Trainer:
                                        seed=tcfg.seed, seq_len=tcfg.seq_len)
         #: rung -> peak bytes measured around the rung's first step (cuda)
         self.measured_bytes: Dict[int, float] = {}
+        self.ckpt = (AsyncCheckpointer(tcfg.ckpt_dir, tcfg.ckpt_keep)
+                     if tcfg.ckpt_dir else None)
+        self._preempted = False
         self.metrics_log: List[Dict[str, Any]] = []
         self.oom_events: list = []       # (step, rung) per caught OOM
 
@@ -158,17 +176,106 @@ class Trainer:
         return self.view.amax_tree(self.state.compute["p_amax"],
                                    self._params_like)
 
+    def _save_state(self) -> TrainState:
+        """Checkpoint boundary: resident slabs unpack to TREE form (views
+        of the slabs; the checkpointer copies them to the host before the
+        next step), so checkpoints stay residency-agnostic and match the
+        reference's."""
+        if not self.resident:
+            return self.state
+        return unpack_state(self.view, self.state, self._params_like)
+
+    def _tree_template(self) -> TrainState:
+        """Tree-form state matching what ``_save_state`` writes, on the
+        meta device where the leaves are parameter-shaped: the restore
+        template of a resident trainer (only its key paths are read)."""
+        cd = self.task.compute_dtype
+        compute = {"p_amax": torch.empty((self.grouping.num_layers,),
+                                         device="meta"),
+                   "tree": tu.tree_map(lambda p: torch.empty(
+                       p.shape, dtype=cd, device="meta"), self._params_like)}
+        return TrainState(self._params_like, self.state.aux_state,
+                          self.opt.init(self._params_like),
+                          self.state.control, compute)
+
     def _batch_for_rung(self, rung: int, step: int):
         stream = dataclasses.replace(self.stream, global_batch=rung) \
             if self.tcfg.elastic_true_batch else self.stream
         return stream.batch(step)
 
+    # ------------------------------------------------- fault tolerance ----
+    def install_preemption_handler(self):
+        """Checkpoint-and-exit on SIGTERM (spot reclamation) and SIGINT
+        (Ctrl-C). Prior handlers are chained, not clobbered; SIG_DFL,
+        SIG_IGN and Python's default SIGINT handler (whose KeyboardInterrupt
+        would defeat the graceful exit) are not chained."""
+        def _make(prev):
+            chain = prev if (callable(prev)
+                             and prev is not signal.default_int_handler) \
+                else None
+
+            def _handler(signum, frame):
+                self._preempted = True
+                if chain is not None:
+                    chain(signum, frame)
+            return _handler
+
+        for sig in (signal.SIGTERM, signal.SIGINT):
+            signal.signal(sig, _make(signal.getsignal(sig)))
+
+    @staticmethod
+    def _fill_missing():
+        """Fills for leaves newer than the checkpoint on disk: a
+        checkpoint without the rollback demotion restores at 1.0."""
+        return {"lr_demote": np.ones((), np.float32)}
+
+    def maybe_restore(self) -> int:
+        """Restore the newest committed generation of ``ckpt_dir`` that
+        verifies, written by this package or the reference, onto this
+        trainer's device -> the restored ``control.step`` (0 when there is
+        none)."""
+        if not (self.tcfg.ckpt_dir
+                and latest_step(self.tcfg.ckpt_dir) is not None):
+            return 0
+        if self.resident:
+            return self._restore_resident()
+        self.state = restore_checkpoint(self.tcfg.ckpt_dir, self.state,
+                                        device=self.device,
+                                        fill_missing=self._fill_missing())
+        return int(self.state.control.step)
+
+    def _restore_resident(self) -> int:
+        """Restore a tree-form checkpoint into the slab-resident trainer:
+        leaves load onto this device and pack into slabs. Takes 5-field
+        states (what ``_save_state`` writes) and 4-field ones (a
+        reference-path run's: ``compute`` re-seeded from the restored
+        masters)."""
+        keys = manifest_keys(self.tcfg.ckpt_dir)
+        has_compute = any(k.startswith(".compute") for k in keys)
+        tmpl = self._tree_template()
+        if not has_compute:
+            tmpl = tmpl._replace(compute=())
+        host = restore_checkpoint(self.tcfg.ckpt_dir, tmpl,
+                                  device=self.device,
+                                  fill_missing=self._fill_missing())
+        if not has_compute:
+            host = host._replace(compute=init_compute(
+                self.task, host.params, self.grouping, host.control,
+                self.tac))
+        self.state = pack_state(self.view, host, self.task.compute_dtype)
+        return int(self.state.control.step)
+
     # -------------------------------------------------------------- run ---
     def run(self, steps: Optional[int] = None):
         steps = steps if steps is not None else self.tcfg.total_steps
         start = int(self.state.control.step)
+        end = start + steps
         t0 = time.time()
-        for step in range(start, start + steps):
+        for step in range(start, end):
+            if self._preempted:
+                if self.ckpt:
+                    self.ckpt.save(step, self._save_state(), block=True)
+                raise SystemExit(143)
             self.state, metrics, rung = self._dispatch(step)
 
             # §3.2 curvature cadence (host side, tiny batch)
@@ -183,18 +290,26 @@ class Trainer:
                 self.scaler.observe(step, codes=codes,
                                     measured_bytes=self.measured_bytes.get(
                                         rung))
+            # checkpoint cadence: the generation is named ``step`` and
+            # holds control.step == step + 1, as the reference's
+            if self.ckpt and step > 0 and step % self.tcfg.ckpt_every == 0:
+                self.ckpt.save(step, self._save_state())
             if step % self.tcfg.log_every == 0:
                 m = {k: float(v) for k, v in metrics.items()}
                 m.update(step=step, rung=rung,
                          mem_gb=self.scaler._mem(self.scaler.idx) / 1e9,
                          wall_s=round(time.time() - t0, 4))
                 self.metrics_log.append(m)
+        if self.ckpt:
+            self.ckpt.save(end, self._save_state(), block=True)
         return self.metrics_log
 
     def _dispatch(self, step: int):
         """One train step with OOM step-down: an out-of-memory error
         poisons the rung and re-runs the SAME batch one rung lower, at most
-        ``max_oom_retries`` times; an OOM on the smallest rung re-raises."""
+        ``max_oom_retries`` times; an OOM on the smallest rung re-raises
+        after a blocking checkpoint (the state is never donated, so it is
+        intact)."""
         err: Optional[BaseException] = None
         for _ in range(self.tcfg.max_oom_retries + 1):
             rung = self.scaler.microbatch
@@ -217,6 +332,8 @@ class Trainer:
                 self.oom_events.append((step, rung))
                 if self.scaler.mark_oom(rung) == rung:
                     break                   # smallest rung OOM'd: escalate
+        if self.ckpt:
+            self.ckpt.save(step, self._save_state(), block=True)
         raise err
 
     def _curvature(self, step: int):

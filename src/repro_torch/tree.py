@@ -3,8 +3,8 @@
 
 Leaf order equals ``jax.tree_util.tree_flatten`` order for dict trees: keys
 are sorted at every level (so ``bn_stem < fc < s0b0 < ... < stem`` and
-``bias < scale``). Lists and tuples keep their order; anything else is a
-leaf. The slab layout (``kernels.layout``) depends on this order, since it
+``bias < scale``). Lists, tuples and NamedTuples keep their order (a
+NamedTuple unflattens to its own class); anything else is a leaf. The slab layout (``kernels.layout``) depends on this order, since it
 fixes every leaf's row range and therefore the per-row layer ids.
 """
 from __future__ import annotations
@@ -20,10 +20,14 @@ def _flatten_into(t, leaves: List[Any]):
         return ("dict", tuple(keys),
                 tuple(_flatten_into(t[k], leaves) for k in keys))
     if isinstance(t, (list, tuple)):
-        return (type(t).__name__, len(t),
-                tuple(_flatten_into(x, leaves) for x in t))
+        kind = type(t) if _is_namedtuple(t) else type(t).__name__
+        return (kind, len(t), tuple(_flatten_into(x, leaves) for x in t))
     leaves.append(t)
     return _LEAF
+
+
+def _is_namedtuple(t) -> bool:
+    return isinstance(t, tuple) and hasattr(t, "_fields")
 
 
 def flatten(tree) -> Tuple[List[Any], Any]:
@@ -42,7 +46,9 @@ def _build(d, it):
     if kind == "dict":
         return {k: _build(c, it) for k, c in zip(meta, children)}
     seq = [_build(c, it) for c in children]
-    return seq if kind == "list" else tuple(seq)
+    if kind == "list":
+        return seq
+    return tuple(seq) if kind == "tuple" else kind(*seq)
 
 
 def unflatten(treedef, leaves) -> Any:
@@ -74,6 +80,31 @@ def paths(tree) -> List[Tuple]:
     without their wrappers."""
     out: List[Tuple] = []
     _paths_into(tree, (), out)
+    return out
+
+
+def _keystrs_into(t, prefix: str, out: List[str]):
+    if isinstance(t, dict):
+        for k in sorted(t.keys()):
+            _keystrs_into(t[k], f"{prefix}[{k!r}]", out)
+    elif _is_namedtuple(t):
+        for f, x in zip(t._fields, t):
+            _keystrs_into(x, f"{prefix}.{f}", out)
+    elif isinstance(t, (list, tuple)):
+        for i, x in enumerate(t):
+            _keystrs_into(x, f"{prefix}[{i}]", out)
+    else:
+        out.append(prefix)
+
+
+def keystrs(tree) -> List[str]:
+    """Each leaf's key path in leaf order, spelled as
+    ``jax.tree_util.keystr`` spells it: ``.field`` for a NamedTuple's
+    field, ``['k']`` for a dict key, ``[i]`` for a list or tuple index
+    (``.params['bn_stem']['bias']``, ``.control.codes``). Checkpoint
+    manifests are keyed by these strings in both packages."""
+    out: List[str] = []
+    _keystrs_into(tree, "", out)
     return out
 
 

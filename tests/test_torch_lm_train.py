@@ -31,6 +31,9 @@ order, one bf16 ulp, 2^-8 relative, here and there):
     step of each, 2^-8 (|p| + |p_ref|), plus 2^-24; var_ema within rtol
     1e-2 (measured below 1e-3); the skipped (non-finite) step bitwise.
 """
+import os
+import signal
+
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -78,13 +81,19 @@ CLIP = 5.0
 @pytest.fixture(autouse=True)
 def _process_state():
     """Leave nothing process-wide changed for the test files that share
-    this worker: the fallback warnings, the launch counts, TF32 and the
-    default dtype; and no test may leave ``flash_fallback`` on."""
+    this worker: the fallback warnings, the launch counts, TF32, the
+    default dtype and the SIGTERM / SIGINT handlers (the launcher installs
+    its preemption handler); and no test may leave ``flash_fallback``
+    on."""
     warned, launches = set(ops.WARNED_FALLBACKS), dict(ops.LAUNCHES)
     tf32 = (torch.backends.cuda.matmul.allow_tf32,
             torch.backends.cudnn.allow_tf32)
     dtype = torch.get_default_dtype()
+    handlers = {s: signal.getsignal(s)
+                for s in (signal.SIGTERM, signal.SIGINT)}
     yield
+    for s, h in handlers.items():
+        signal.signal(s, h)
     ops.WARNED_FALLBACKS.clear()
     ops.WARNED_FALLBACKS.update(warned)
     ops.LAUNCHES.update(launches)
@@ -489,14 +498,31 @@ def test_launcher_trains_on_the_cpu(capsys):
     assert float(tr.state.control.lam.abs().sum()) > 0   # fisher at step 2
 
 
-@pytest.mark.parametrize("flag", [["--ckpt", "/nonexistent"],
-                                  ["--distributed"], ["--no-triaccel"]])
-def test_launcher_unported_flags_raise(flag, capsys):
-    """``--ckpt`` and ``--distributed`` are not ported and raise.
+@pytest.mark.parametrize("flag", [["--ckpt"], ["--distributed"],
+                                  ["--no-triaccel"]])
+def test_launcher_unported_flags_raise(flag, capsys, tmp_path):
+    """``--distributed`` is not ported and raises. ``--ckpt`` raised until
+    checkpointing was ported: a run with ``--ckpt`` under ``tmp_path``
+    trains and checkpoints, and the same command again prints ``resumed at
+    step N``, ending at the first run's ``control.step`` with its state.
     ``--no-triaccel`` raised until ``reference_step`` was ported: it now
     trains the static bf16 baseline on the CPU, on the reference path,
     with every control off and the rung fixed."""
-    if flag != ["--no-triaccel"]:
+    if flag == ["--ckpt"]:
+        argv = ["--arch", "smollm-135m", "--reduced", "--seq", "64",
+                "--rungs", "2", "--ladder", "gpu", "--device", "cpu",
+                "--steps", "2", "--ckpt", str(tmp_path)]
+        first = launch_train.main(argv)
+        assert capsys.readouterr().out.splitlines()[0].startswith("{")
+        assert int(first.state.control.step) == 2
+        assert sorted(os.listdir(tmp_path)) == [
+            "step_000000000002", "step_000000000002.COMMITTED"]
+        again = launch_train.main(argv)
+        assert capsys.readouterr().out.splitlines() == ["resumed at step 2"]
+        assert int(again.state.control.step) == 2
+        assert torch.equal(again.state.params, first.state.params)
+        return
+    if flag == ["--distributed"]:
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             launch_train.main(["--device", "cpu", "--steps", "1"] + flag)
         return
