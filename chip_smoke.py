@@ -9,7 +9,7 @@ Phases (any failure raises and the script exits non-zero):
   2. build every CUDA source under ``src/repro_torch/kernels/csrc`` with
      ``nvcc`` (all sources at once), print the seconds and the ptxas report
      (for the flash forward and backward sources, each instantiation's
-     registers and spills; none may spill on the tensor-core route);
+     registers and spills; none may spill in the wgmma sources, *_sm90);
   3. hold each kernel against its plain PyTorch version on the card, time
      both with CUDA events, compute the least time the card could take
      (``bound_ms``) and time one PyTorch call computing the same function
@@ -46,20 +46,25 @@ Phases (any failure raises and the script exits non-zero):
          16 timed, log only);
        - delta over Dv 16, 36, 40, 64, 128, 256 (f32 and bf16) and at the
          LM rungs, each call repeated bitwise;
-       - the three flash backward kernels (delta, dQ, dK/dV), both routes
-         (``flash_attention.bwd_route``: bf16 takes the tensor-core dQ and
-         dK/dV, f32 the SIMT ones) over every variant, at the wide head
-         dims (192, 192), (256, 256), (192, 128) (the SIMT kernels on
-         32-row tiles; every mask, f32 and bf16; both routes timed at head
-         dim 256, B 1, S 1024 beside SDPA, log only), and with the forward
-         kernel (LSE output on) at the LM training shapes (B 2, 4 and 8, S
-         1024, 9/3 heads, head_dim 64, bf16, causal), timed at B 8 against
-         the forward and the backward of ``scaled_dot_product_attention``
-         (the forward's SIMT kernel, and the SIMT dQ and dK/dV on the same
-         bf16 inputs, beside them; the SIMT dQ and dK/dV also in f32, their
-         route's type); the differentiable ``ops.flash_attention`` against
-         autograd through the plain forward in f32 and in bf16, head dim
-         256 included;
+       - the three flash backward kernels (delta, dQ, dK/dV), all three
+         routes (``flash_attention.bwd_route``: bf16 takes the tensor-core
+         dQ and dK/dV, f32 the split-TF32 ones, bf16 at head dims 24/64
+         and 64/40 the SIMT ones; every f32 variant also runs the SIMT
+         kernels through their raw entry) over every variant, at the wide
+         head dims (192, 192), (256, 256), (192, 128) (the SIMT and
+         split-TF32 kernels on 32-row tiles; every mask, f32 and bf16; the
+         bf16 routes timed at head dim 256, B 1, S 1024 beside SDPA, log
+         only), and with the forward kernel (LSE output on) at the LM
+         training shapes (B 2, 4 and 8, S 1024, 9/3 heads, head_dim 64,
+         bf16, causal), timed at B 8 against the forward and the backward
+         of ``scaled_dot_product_attention`` (the forward's SIMT kernel,
+         and the SIMT dQ and dK/dV on the same bf16 inputs, beside them;
+         then in f32 the split-TF32 and the SIMT dQ and dK/dV in turns,
+         beside SDPA's f32 backward); the differentiable
+         ``ops.flash_attention`` against autograd through the plain
+         forward in f32 and in bf16, head dim 256 included, its launches
+         counted by route (the f32 backwards' split-TF32 launches go into
+         the ``_tf32`` rows as ``f32_function_launches``);
        - grad_stats over the reference's test shapes (f32, bf16), its
          benchmark's (1024, 1024) and its registry's (1,000,000,) f32, an
          empty tensor and tensors holding NaN, +inf, -inf; absmax bitwise,
@@ -150,9 +155,14 @@ rows carry ``fwd_route``: ``flash_attention`` and
 paths run; ``flash_attention_simt`` is the SIMT kernel f32 callers get (no
 main path launches it), timed in f32. The backward's dQ and dK/dV rows
 carry ``bwd_route`` the same way: ``flash_attention_bwd_dq`` and
-``flash_attention_bwd_dkv`` are the tensor-core kernels the LM paths run,
+``flash_attention_bwd_dkv`` are the tensor-core kernels the LM paths run;
+``flash_attention_bwd_dq_tf32`` and ``flash_attention_bwd_dkv_tf32`` the
+split-TF32 kernels of f32 callers (no main path launches them; their
+``f32_function_launches`` come from the f32 autograd check), timed in f32
+with the TF32 bound (``f32_fma_bound_ms`` beside it);
 ``flash_attention_bwd_dq_simt`` and ``flash_attention_bwd_dkv_simt`` the
-SIMT kernels of f32 callers, timed in f32. ``qdq_cast`` is the two-pass
+SIMT kernels (bf16 head dims the tensor-core kernels refuse), timed in
+f32 as before. ``qdq_cast`` is the two-pass
 form the serving path launches, ``qdq_cast_one_pass`` the one-pass form
 the LM path's tier-0 set launches, both timed over the 11 leaves, f32 in
 and bf16 out as those paths cast (``f32_out_*``: the same with f32 out).
@@ -211,11 +221,17 @@ KERNELS = {
         "src/repro/kernels/flash_attention.py:379"),
     "flash_attention_bwd_dq": (f"{CSRC}/flash_bwd_sm90.cu",
                                "src/repro/kernels/flash_attention.py:405"),
+    "flash_attention_bwd_dq_tf32": (
+        f"{CSRC}/flash_bwd_tf32.cu",
+        "src/repro/kernels/flash_attention.py:405"),
     "flash_attention_bwd_dq_simt": (
         f"{CSRC}/flash_attention_bwd.cu",
         "src/repro/kernels/flash_attention.py:405"),
     "flash_attention_bwd_dkv": (f"{CSRC}/flash_bwd_sm90.cu",
                                 "src/repro/kernels/flash_attention.py:441"),
+    "flash_attention_bwd_dkv_tf32": (
+        f"{CSRC}/flash_bwd_tf32.cu",
+        "src/repro/kernels/flash_attention.py:441"),
     "flash_attention_bwd_dkv_simt": (
         f"{CSRC}/flash_attention_bwd.cu",
         "src/repro/kernels/flash_attention.py:441"),
@@ -234,9 +250,9 @@ LM_T_CTRL, LM_T_CURV = 5, 10
 # its rung, as ResNet-18's)
 EFF_STEPS = 50
 # published peaks of the H100 SXM (NVIDIA's data sheet): device memory
-# bytes/s, f32 operations/s outside the tensor cores, and bf16 tensor-core
-# operations/s (dense)
-PEAKS = {"H100": (3.35e12, 67e12, 989e12)}
+# bytes/s, f32 operations/s outside the tensor cores, bf16 tensor-core
+# operations/s (dense) and TF32 tensor-core operations/s (dense)
+PEAKS = {"H100": (3.35e12, 67e12, 989e12, 495e12)}
 
 
 def log(*a):
@@ -1545,6 +1561,33 @@ def _bwd_pair(q, k, v, do, o, lse, seg, kw, what):
                               close(dv, dv_r, what + " dv"))}
 
 
+def _simt_raw(q, k, v, do, o, lse, seg, kw, what):
+    """The SIMT dQ and dK/dV through their raw entry (``tri_flash_bwd_dq``
+    / ``tri_flash_bwd_dkv``, whatever ``bwd_route`` picks for these inputs:
+    f32 callers now get the split-TF32 kernels) against their plain
+    versions on the same inputs -> max |err| (dq, dk/dv)."""
+    from repro_torch.kernels import flash_attention as fa
+    B, S, H, D = q.shape
+    K, Dv = k.shape[2], v.shape[-1]
+    delta = fa.flash_bwd_delta_ref(o, do)
+    dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
+    ins = tuple(x.data_ptr() for x in (q, k, v, do, lse, delta)) + (
+        None if seg is None else seg.data_ptr(),)
+    dims = (fa._DTYPE_CODE[q.dtype], B, S, H, K, D, Dv, int(kw["causal"]),
+            int(kw["window"]), D ** -0.5, fa.bwd_rows(D, Dv))
+    lib, stream = fa._bwd_lib(), torch.cuda.current_stream().cuda_stream
+    check(lib.tri_flash_bwd_dq(*ins, dq.data_ptr(), *dims, stream) == 0,
+          f"{what}: SIMT dq launched")
+    check(lib.tri_flash_bwd_dkv(*ins, dk.data_ptr(), dv.data_ptr(), *dims,
+                                stream) == 0, f"{what}: SIMT dk/dv launched")
+    torch.cuda.synchronize()
+    dk_r, dv_r = fa.flash_bwd_dkv_ref(q, k, v, do, lse, delta, seg, **kw)
+    return (close(dq, fa.flash_bwd_dq_ref(q, k, v, do, lse, delta, seg, **kw),
+                  what + " simt dq"),
+            max(close(dk, dk_r, what + " simt dk"),
+                close(dv, dv_r, what + " simt dv")))
+
+
 def _lm_rungs():
     return [int(r) for r in
             LM_TRAIN_ARGS[LM_TRAIN_ARGS.index("--rungs") + 1].split(",")]
@@ -1553,18 +1596,24 @@ def _lm_rungs():
 BWD_VARIANTS = ("causal", "noncausal", "window", "segments")
 
 
-def check_flash_bwd(dev, bw, f32_ops, tc_rate):
+def check_flash_bwd(dev, bw, f32_ops, tc_rate, tf32_rate):
     """The three backward kernels (delta, dQ, dK/dV) against their plain
     versions, each fed the same (q, k, v, dO, o, lse, delta), within
     ``flash_attention.tolerance`` (1e-5 of the largest magnitude plus 1e-5
     relative, and one bf16 ulp in bf16: the sums run in another order, the
     SIMT kernels contract a*b+c, the tensor-core kernels carry P and dS as
-    bf16 hi + lo). Every bf16 variant takes the tensor-core dQ and dK/dV
-    (``flash_attention.bwd_route``), every f32 variant the SIMT kernels;
-    the launches are counted on that route. Over every variant (causal,
-    not causal, window, segments): S 256 and 512, GQA rep 2 and 3, head
-    dims 16 and 64 and two Dv != D, f32 and bf16; then at the wide head
-    dims (192, 192), (256, 256) and (192, 128) (the SIMT kernels on 32-row
+    bf16 hi + lo, the split-TF32 kernels every operand as tf32 hi + lo).
+    Through the route (``flash_attention.bwd_route``): every bf16 variant
+    at the tensor-core head dims takes the tensor-core dQ and dK/dV, every
+    f32 variant the split-TF32 ones, and bf16 at head dims 24/64 and 64/40
+    the SIMT ones; the launches are counted on that route. Every f32
+    variant also runs the SIMT dQ and dK/dV through their raw entry, held
+    to the same plain versions; ``bwd_tf32_smem`` must equal the source's
+    own size at every head dim the split-TF32 route takes. Over every
+    variant (causal, not causal, window, segments): S 256 and 512, GQA rep
+    2 and 3, head dims 16 and 64 and two Dv != D, f32 and bf16; then at
+    the wide head dims (192, 192),
+    (256, 256) and (192, 128) (the SIMT and split-TF32 kernels on 32-row
     tiles, ``flash_attention.bwd_rows``), S 256, 4/2 heads. Then at the LM
     training path's shapes, B = each rung (2, 4, 8), S 1024, 9/3 heads,
     head_dim 64, bf16, causal: the forward kernel with its LSE output (as
@@ -1572,33 +1621,51 @@ def check_flash_bwd(dev, bw, f32_ops, tc_rate):
     plain forward's (o, lse), and the three backward kernels. At the top
     rung all are timed: the forward (its SIMT kernel beside it), delta,
     and dQ and dK/dV on the tensor cores beside the SIMT kernels on the
-    same bf16 inputs (the route bf16 took before); then the SIMT kernels'
-    own rows in f32, the type their route takes, at the same shape. The
-    library yardstick for the backward rows is the backward of
-    ``scaled_dot_product_attention`` at that shape and type
-    (``torch.autograd.grad`` from a saved forward), one time for the
-    rows; for the forward row, its forward."""
+    same bf16 inputs (the route bf16 took before); then in f32 at the same
+    shape the split-TF32 dQ and dK/dV (f32's route) and the SIMT ones
+    (the route f32 took before), in turns, each row with its bound: the
+    split-TF32 rows at the TF32 tensor-core rate for three products a
+    product, the f32-FMA bound beside it. The library yardstick for the
+    backward rows is the backward of ``scaled_dot_product_attention`` at
+    that shape and type (``torch.autograd.grad`` from a saved forward),
+    one time for the rows; for the forward row, its forward."""
     from repro_torch.kernels import flash_attention as fa
     gen = torch.Generator(device=dev).manual_seed(8)
-    err = {r: {"delta": 0.0, "dq": 0.0, "dkv": 0.0} for r in ("tc", "simt")}
+    err = {r: {"delta": 0.0, "dq": 0.0, "dkv": 0.0}
+           for r in ("tc", "tf32", "simt")}
+    tf32 = fa._tf32_bwd_lib()
+    dims8 = range(8, 257, 8)
+    off = [(name, D, Dv) for kern, name in enumerate(("dq", "dkv"))
+           for D in dims8 for Dv in dims8
+           if tf32.tri_flash_bwd_tf32_smem(kern, D, Dv, fa.bwd_rows(D, Dv))
+           != fa.bwd_tf32_smem(name, D, Dv)]
+    check(not off, f"bwd_tf32_smem mirrors the split-TF32 source: {off[:4]}")
 
     def run(S, H, K, D, Dv, dtype, variant, what):
         seg = _segments(2, S, dev, S) if variant == "segments" else None
         kw = dict(causal=variant != "noncausal",
                   window=100 if variant == "window" else 0)
         ins = _bwd_inputs(2, S, H, K, D, Dv, dtype, dev, gen, seg, **kw)
-        route, got = _bwd_pair(*ins, seg, kw,
-                               f"flash bwd {what} {dtype} {variant}")
-        check(route == ("tc" if dtype == torch.bfloat16 else "simt"),
-              f"flash bwd {what} {dtype}: route {route}")
+        what = f"flash bwd {what} {dtype} {variant}"
+        route, got = _bwd_pair(*ins, seg, kw, what)
+        want = ("tf32" if dtype == torch.float32 else
+                "tc" if fa.fwd_route(dtype, D, Dv) == "tc" else "simt")
+        check(route == want, f"{what}: route {route}")
         err[route] = {k: max(e, got[k]) for k, e in err[route].items()}
+        if dtype == torch.float32:      # the SIMT kernels, held all the same
+            e_dq, e_dkv = _simt_raw(*ins, seg, kw, what)
+            err["simt"]["dq"] = max(err["simt"]["dq"], e_dq)
+            err["simt"]["dkv"] = max(err["simt"]["dkv"], e_dkv)
         return route
 
     def summary(routes):
         return "; ".join(
             f"{routes.count(r)} on the {r} route (max|err| delta "
             f"{err[r]['delta']:.3g}, dq {err[r]['dq']:.3g}, dk/dv "
-            f"{err[r]['dkv']:.3g})" for r in ("tc", "simt"))
+            f"{err[r]['dkv']:.3g})" for r in ("tc", "tf32", "simt")) + (
+            f"; the SIMT kernels through their raw entry on each f32 "
+            f"variant, max|err| dq {err['simt']['dq']:.3g}, dk/dv "
+            f"{err['simt']['dkv']:.3g}")
 
     shapes = [(S, hk, D, D) for S in (256, 512) for hk in ((4, 2), (9, 3))
               for D in (16, 64)] + [(256, (9, 3), 64, 32),
@@ -1607,12 +1674,17 @@ def check_flash_bwd(dev, bw, f32_ops, tc_rate):
               for S, (H, K), D, Dv in shapes
               for dtype in (torch.float32, torch.bfloat16)
               for variant in BWD_VARIANTS]
+    # bf16 at head dims the tensor-core kernels refuse: the SIMT route
+    routes += [run(256, H, K, D, Dv, torch.bfloat16, variant,
+                   f"256 {H}/{K} {D}/{Dv}")
+               for (H, K), D, Dv in (((4, 2), 24, 64), ((9, 3), 64, 40))
+               for variant in BWD_VARIANTS]
     log(f"flash_attention backward: {len(routes)} variants within "
         f"tolerance, {summary(routes)}")
     wide = []
     for D, Dv in ((192, 192), (256, 256), (192, 128)):
         check(fa.bwd_rows(D, Dv) == 32,
-              "SIMT: 32-row tiles above head dim 128")
+              "SIMT and split TF32: 32-row tiles above head dim 128")
         wide += [run(256, 4, 2, D, Dv, dtype, variant, f"{D}/{Dv}")
                  for dtype in (torch.float32, torch.bfloat16)
                  for variant in BWD_VARIANTS]
@@ -1735,34 +1807,76 @@ def check_flash_bwd(dev, bw, f32_ops, tc_rate):
             out[name]["device_ms"] = dev_ms
     log(f"  sdpa backward (all three together, bf16) {lib_ms:.4f} ms")
 
-    # the SIMT route's own type: f32 at the same shape
+    # f32 at the same shape: the split-TF32 kernels (f32's route) and the
+    # SIMT kernels (the route f32 took before), timed in turns
     q32, k32, v32, do32 = (x.float() for x in (q, k, v, do))
     o32, lse32 = fa.flash_attention_ref(q32, k32, v32, with_lse=True, **kw)
     delta32 = fa.flash_bwd_delta_ref(o32, do32)
     args32 = (q32, k32, v32, do32, lse32, delta32)
-    check(fa.bwd_route(torch.float32, D, D) == "simt", "f32 route")
-    e_dq = close(fa.flash_bwd_dq_cuda(*args32, **kw),
-                 fa.flash_bwd_dq_ref(*args32, **kw), "flash bwd simt f32 dq")
-    e_dkv = max(close(a, b_, "flash bwd simt f32 dk/dv") for a, b_ in zip(
-        fa.flash_bwd_dkv_cuda(*args32, **kw),
-        fa.flash_bwd_dkv_ref(*args32, **kw)))
+    check(fa.bwd_route(torch.float32, D, D) == "tf32", "f32 route")
+    e_tf = {"dq": close(fa.flash_bwd_dq_cuda(*args32, **kw),
+                        fa.flash_bwd_dq_ref(*args32, **kw),
+                        "flash bwd tf32 f32 dq"),
+            "dkv": max(close(a_, b_, "flash bwd tf32 f32 dk/dv")
+                       for a_, b_ in zip(fa.flash_bwd_dkv_cuda(*args32, **kw),
+                                         fa.flash_bwd_dkv_ref(*args32,
+                                                              **kw)))}
+    e_simt = dict(zip(("dq", "dkv"), _simt_raw(
+        q32, k32, v32, do32, o32, lse32, None, kw, "flash bwd simt f32")))
     lib32 = _sdpa_bwd_ms(q32, k32, v32, do32)
-    for key, name, e_main, fn, ref in (
-            ("dq", "flash_attention_bwd_dq_simt", e_dq,
-             fa.flash_bwd_dq_cuda, fa.flash_bwd_dq_ref),
-            ("dkv", "flash_attention_bwd_dkv_simt", e_dkv,
-             fa.flash_bwd_dkv_cuda, fa.flash_bwd_dkv_ref)):
-        ms = time_ms(lambda: fn(*args32, **kw), iters=5)
-        plain_ms = time_ms(lambda: ref(*args32, **kw), iters=2, reps=3)
-        b_ms, by = bound(*work(4)[key], bw, f32_ops)
-        e = max(e_main, err["simt"][key])
-        log(f"{name} B{B} S{S} H{H}/K{K} D{D} f32 causal: kernel {ms:.4f} "
-            f"ms, plain {plain_ms:.4f} ms, sdpa backward (f32) "
-            f"{lib32:.4f} ms, bound {b_ms:.5f} ms ({by}, f32 outside the "
-            f"tensor cores), max|err| {e:.3g}")
-        out[name] = {"max_abs_err": e, "ms": ms, "plain_ms": plain_ms,
-                     "bound_ms": b_ms, "bound_by": by, "library_ms": lib32,
-                     "bwd_route": "simt"}
+    dq32, dk32, dv32 = (torch.empty_like(x) for x in (q32, k32, v32))
+    ins32 = tuple(ptr(x) for x in args32) + (None,)
+    dims32 = (0,) + dims + (fa.bwd_rows(D, D),)
+    raw32 = {
+        "tf32": {
+            "dq": lambda: tf32.tri_flash_bwd_dq_tf32(*ins32, ptr(dq32),
+                                                     *dims32, stream),
+            "dkv": lambda: tf32.tri_flash_bwd_dkv_tf32(
+                *ins32, ptr(dk32), ptr(dv32), *dims32, stream)},
+        "simt": {
+            "dq": lambda: lib.tri_flash_bwd_dq(*ins32, ptr(dq32), *dims32,
+                                               stream),
+            "dkv": lambda: lib.tri_flash_bwd_dkv(*ins32, ptr(dk32),
+                                                 ptr(dv32), *dims32,
+                                                 stream)}}
+    turns = {(r, key): [] for r in raw32 for key in ("dq", "dkv")}
+    for order in (("tf32", "simt"), ("simt", "tf32")):
+        for r in order:
+            for key in ("dq", "dkv"):
+                turns[(r, key)].append(time_ms(raw32[r][key], iters=5))
+    plain32 = {"dq": time_ms(lambda: fa.flash_bwd_dq_ref(*args32, **kw),
+                             iters=2, reps=3),
+               "dkv": time_ms(lambda: fa.flash_bwd_dkv_ref(*args32, **kw),
+                              iters=2, reps=3)}
+    for key in ("dq", "dkv"):
+        fma_ms, fma_by = bound(*work(4)[key], bw, f32_ops)
+        nbytes, nops = work(4)[key]
+        tf_ms, tf_by = bound(nbytes, 3 * nops, bw, tf32_rate)
+        for r in ("tf32", "simt"):
+            name = f"flash_attention_bwd_{key}_{r}"
+            t = turns[(r, key)]
+            ms = statistics.median(t)
+            e = max(e_tf[key], err["tf32"][key]) if r == "tf32" else max(
+                e_simt[key], err["simt"][key])
+            b_ms, by = (tf_ms, tf_by) if r == "tf32" else (fma_ms, fma_by)
+            log(f"{name} B{B} S{S} H{H}/K{K} D{D} f32 causal: kernel "
+                f"{ms:.5f} ms (turns {', '.join(f'{x:.5f}' for x in t)}), "
+                f"plain {plain32[key]:.4f} ms, sdpa backward (f32) "
+                f"{lib32:.4f} ms, bound {b_ms:.5f} ms ({by}"
+                + (", three TF32 products a product at the tensor cores' "
+                   f"dense rate; the f32-FMA bound {fma_ms:.5f} ms)"
+                   if r == "tf32" else ", f32 outside the tensor cores)")
+                + f", max|err| {e:.3g}")
+            out[name] = {"max_abs_err": e, "ms": ms,
+                         "plain_ms": plain32[key], "bound_ms": b_ms,
+                         "bound_by": by, "library_ms": lib32,
+                         "bwd_route": r}
+            if r == "tf32":
+                out[name]["f32_fma_bound_ms"] = fma_ms
+    pair = {r: sum(out[f"flash_attention_bwd_{key}_{r}"]["ms"]
+                   for key in ("dq", "dkv")) for r in ("tf32", "simt")}
+    log(f"  f32 dQ + dK/dV: split TF32 {pair['tf32']:.5f} ms, SIMT "
+        f"{pair['simt']:.5f} ms, sdpa backward (f32) {lib32:.4f} ms")
     return out
 
 
@@ -1825,25 +1939,29 @@ def time_wide_heads(dev, gen, bw, tc_rate, D=256) -> None:
     log(f"  B{B} S{S} H{H}/K{K} D{D} bf16 causal: " + "; ".join(parts))
 
 
-def check_flash_function(dev):
+def check_flash_function(dev) -> dict:
     """The differentiable ``ops.flash_attention`` (forward kernel with LSE,
     then the three backward kernels) against autograd through the plain
     forward in f32 on the same inputs, on the card. In f32 (the SIMT
-    routes) each gradient within 1e-5 of its largest magnitude (the CPU
-    parity test measures 4e-7 between the two formulations; the card adds
-    its own summation order). In bf16 (the tensor-core routes, forward and
-    backward) within 2^-7 of it: the gradients round to bf16 (half an ulp,
-    up to 2^-8 of the largest magnitude) and delta is taken from the bf16
-    o; the same bf16 chain through the plain versions stays within it on
-    the CPU (``tests/test_torch_flash_bwd_tc.py``), and the kernels add
-    their one ulp. Head dim 64, and once 256. The launches are counted on
-    each route."""
+    forward, the split-TF32 dQ and dK/dV) each gradient within 1e-5 of its
+    largest magnitude (the CPU parity test measures 4e-7 between the two
+    formulations; the card adds its own summation order). In bf16 (the
+    tensor-core routes, forward and backward) within 2^-7 of it: the
+    gradients round to bf16 (half an ulp, up to 2^-8 of the largest
+    magnitude) and delta is taken from the bf16 o; the same bf16 chain
+    through the plain versions stays within it on the CPU
+    (``tests/test_torch_flash_bwd_tc.py``), and the kernels add their one
+    ulp. Head dim 64, and once 256. The launches are counted on each
+    route -> the split-TF32 dQ and dK/dV launches of the f32 backwards."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ops
     gen = torch.Generator(device=dev).manual_seed(9)
-    for dtype, route, limit in ((torch.float32, "simt", 1e-5),
-                                (torch.bfloat16, "tc", 2.0 ** -7)):
+    f32_launches = {}
+    for dtype, route, bwd, limit in (
+            (torch.float32, "simt", "tf32", 1e-5),
+            (torch.bfloat16, "tc", "tc", 2.0 ** -7)):
         worst, n = 0.0, 0
+        start = dict(ops.LAUNCHES)
         for S, variant, D in ((256, "causal", 64), (256, "segments", 64),
                               (512, "window", 64), (1024, "causal", 64),
                               (256, "causal", 256)):
@@ -1860,9 +1978,9 @@ def check_flash_function(dev):
             got = torch.autograd.grad(o, ins, do)
             for key in ("flash_attention", f"flash_attention_{route}",
                         "flash_attention_bwd_delta", "flash_attention_bwd_dq",
-                        f"flash_attention_bwd_dq_{route}",
+                        f"flash_attention_bwd_dq_{bwd}",
                         "flash_attention_bwd_dkv",
-                        f"flash_attention_bwd_dkv_{route}"):
+                        f"flash_attention_bwd_dkv_{bwd}"):
                 check(ops.LAUNCHES[key] == before[key] + 1,
                       f"Function launched {key} once ({dtype})")
             ins32 = [x.detach().float().requires_grad_(True) for x in ins]
@@ -1876,9 +1994,17 @@ def check_flash_function(dev):
                       f"{name}: {gap}")
                 worst = max(worst, gap)
             n += 1
-        log(f"flash_attention Function, {dtype} ({route} routes): gradients "
-            f"of {n} variants within {worst:.3g} of plain autograd in f32 "
-            f"(relative to each gradient's max; limit {limit:.3g})")
+        grew = {k: ops.LAUNCHES[k] - start[k] for k in ops.LAUNCHES
+                if ops.LAUNCHES[k] != start[k]}
+        log(f"flash_attention Function, {dtype} (forward {route}, backward "
+            f"{bwd}): gradients of {n} variants within {worst:.3g} of plain "
+            f"autograd in f32 (relative to each gradient's max; limit "
+            f"{limit:.3g}); launches {grew}")
+        if dtype == torch.float32:
+            f32_launches = {f"flash_attention_bwd_{k}_tf32":
+                            grew[f"flash_attention_bwd_{k}_tf32"]
+                            for k in ("dq", "dkv")}
+    return f32_launches
 
 
 def _decode_inputs(B, L, H, K, D, Dv, dtype, dev, gen):
@@ -2231,9 +2357,11 @@ def lm_train_main_path():
             "flash_attention_bwd_delta": L * steps,
             "flash_attention_bwd_dq": L * steps,
             "flash_attention_bwd_dq_tc": L * steps,
+            "flash_attention_bwd_dq_tf32": 0,
             "flash_attention_bwd_dq_simt": 0,
             "flash_attention_bwd_dkv": L * steps,
             "flash_attention_bwd_dkv_tc": L * steps,
+            "flash_attention_bwd_dkv_tf32": 0,
             "flash_attention_bwd_dkv_simt": 0,
             "fused_stats": steps, "fused_apply": steps}
     for k, n in want.items():
@@ -3000,7 +3128,7 @@ def main() -> int:
 
     card = card_line()
     name = torch.cuda.get_device_name(0)
-    bw, f32_ops, tc_ops = peaks(name)
+    bw, f32_ops, tc_ops, tf32_ops = peaks(name)
     log(f"card: {card}; torch {torch.__version__}, CUDA "
         f"{torch.version.cuda}, {torch.cuda.device_count()} device(s)")
 
@@ -3020,7 +3148,7 @@ def main() -> int:
             f"registers a thread, {spills} bytes of spills, static smem "
             f"at most {max(smem, default=0)} bytes")
         if s in ("flash_fwd_sm90", "flash_bwd_sm90", "flash_attention_bwd",
-                 "flash_decode_sm90"):
+                 "flash_bwd_tf32", "flash_decode_sm90"):
             for kern, nreg, spill in ptxas_kernels(text):
                 log(f"    {s}: {kern}: {nreg} registers, {spill} bytes of "
                     "spill stores")
@@ -3050,10 +3178,11 @@ def main() -> int:
     res.update(check_flash(dev, bw, f32_ops, tc_ops))
     res["flash_decode"] = check_decode(dev, bw, tc_ops)
     delta_err = check_delta(dev)
-    res.update(check_flash_bwd(dev, bw, f32_ops, tc_ops))
+    res.update(check_flash_bwd(dev, bw, f32_ops, tc_ops, tf32_ops))
     res["flash_attention_bwd_delta"]["max_abs_err"] = max(
         res["flash_attention_bwd_delta"]["max_abs_err"], delta_err)
-    check_flash_function(dev)
+    for k, n in check_flash_function(dev).items():
+        res[k]["f32_function_launches"] = n
     res["grad_stats"] = check_grad_stats(dev, bw, f32_ops)
     log(f"kernel checks in {time.perf_counter() - t_phase:.1f} s")
     if args.kernels_only:
@@ -3131,10 +3260,12 @@ def main() -> int:
     launches["flash_attention_simt"] = sum(
         d["flash_attention_simt"]
         for d in (serve_launches, lm_launches, nt_launches))
-    # likewise the SIMT dQ and dK/dV on the two LM training paths
+    # likewise the split-TF32 and SIMT dQ and dK/dV on the two LM training
+    # paths (f32 callers' routes; the f32 autograd check counts them)
     for k in ("flash_attention_bwd_dq", "flash_attention_bwd_dkv"):
-        launches[f"{k}_simt"] = sum(d[f"{k}_simt"]
-                                    for d in (lm_launches, nt_launches))
+        for route in ("tf32", "simt"):
+            launches[f"{k}_{route}"] = sum(
+                d[f"{k}_{route}"] for d in (lm_launches, nt_launches))
     launches["grad_stats"] = gs_resnet["launches"]
     res["grad_stats"]["max_abs_err"] = max(res["grad_stats"]["max_abs_err"],
                                            gs_resnet["max_abs_err"])

@@ -62,9 +62,12 @@ def to_numpy(t) -> Any:
 
 def control_state(fields: Mapping[str, Any], device="cpu") -> ControlState:
     """A reference ``ControlState`` given as ``{field: array}`` (e.g.
-    ``jax.device_get(ctl)._asdict()``)."""
-    return ControlState(**{k: tensor(fields[k], device)
-                           for k in ControlState._fields})
+    ``jax.device_get(ctl)._asdict()``). A plain Python number (a 7-field
+    construction's default ``lr_demote = 1.0``) stays a number, as in the
+    reference, so it multiplies the f32 learning rate as a weak scalar."""
+    return ControlState(**{
+        k: fields[k] if isinstance(fields[k], (int, float))
+        else tensor(fields[k], device) for k in ControlState._fields})
 
 
 def train_state(params, aux_state, opt_state, control: Mapping[str, Any],

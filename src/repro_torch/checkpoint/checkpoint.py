@@ -81,9 +81,14 @@ def _fsync_dir(path: str) -> None:
 _HostLeaf = Tuple[np.ndarray, str]
 
 
-def _host_leaf(x: torch.Tensor) -> _HostLeaf:
+def _host_leaf(x) -> _HostLeaf:
     """One tensor on any device -> a host copy that owns its memory,
-    complete on return."""
+    complete on return. A plain Python number (the reference's default
+    ``ControlState.lr_demote = 1.0``) is written as ``np.asarray`` makes it,
+    as the reference writes it."""
+    if not isinstance(x, torch.Tensor):
+        a = np.asarray(x)
+        return a, str(a.dtype)
     x = x.detach()
     narrow = _NARROW_TORCH.get(x.dtype)
     if narrow is not None:
@@ -298,6 +303,9 @@ def _restore_step(directory: str, step: int, template: Any, device,
         else:
             arr = _load_leaf(d, meta)
             dtype = meta.get("dtype", str(arr.dtype))
+        if isinstance(leaf, (int, float)):   # a plain-number leaf stays one
+            out.append(type(leaf)(arr.item()))
+            continue
         out.append(_tensor(arr, dtype, _leaf_device(leaf, device)))
     return tu.unflatten(treedef, out)
 

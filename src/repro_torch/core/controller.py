@@ -8,7 +8,7 @@ in ``repro_torch.train.trainer``.
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import Any, NamedTuple
 
 import torch
 
@@ -24,7 +24,9 @@ class ControlState(NamedTuple):
     loss_scale: torch.Tensor    # () dynamic loss scale (fp16 ladder)
     good_steps: torch.Tensor    # () consecutive finite-grad steps
     ema_init: torch.Tensor      # () has the EMA been seeded
-    lr_demote: torch.Tensor     # () multiplicative LR demotion (1.0)
+    #: () multiplicative LR demotion: a tensor from ``init_control``, or
+    #: the reference's default, a plain 1.0, for a 7-field construction
+    lr_demote: Any = 1.0
 
 
 def init_control(num_layers: int, cfg: TriAccelConfig,

@@ -4,8 +4,9 @@ saved LSE) and the ragged single-token decode.
 
 Two forms of each: the hand-written CUDA kernels for Hopper
 (``csrc/flash_fwd_sm90.cu``, ``csrc/flash_attention.cu``,
-``csrc/flash_bwd_sm90.cu``, ``csrc/flash_attention_bwd.cu`` and
-``csrc/flash_decode_sm90.cu``, bound through ``ctypes``: ``*_cuda``) and
+``csrc/flash_bwd_sm90.cu``, ``csrc/flash_bwd_tf32.cu``,
+``csrc/flash_attention_bwd.cu`` and ``csrc/flash_decode_sm90.cu``, bound
+through ``ctypes``: ``*_cuda``) and
 their plain PyTorch versions
 (``*_ref``), which mirror ``repro/kernels/ref.py`` (full softmax with the
 finite ``NEG_INF``) and, for the backward, the math of the reference's
@@ -24,9 +25,13 @@ The forward has two kernels, and ``fwd_route`` picks one from the dtype
 and the head dims alone: bf16 with D and Dv multiples of 16 up to 256 runs
 the tensor-core kernel (``flash_fwd_sm90.cu``: wgmma, TMA), everything
 else the f32 SIMT kernel (``flash_attention.cu``). The backward's dQ and
-dK/dV do the same through ``bwd_route`` (the same rule): the tensor-core
-kernels of ``flash_bwd_sm90.cu`` or the SIMT kernels of
-``flash_attention_bwd.cu``, which also hold delta on every route. The
+dK/dV pick one of three through ``bwd_route``: bf16 at the forward's
+tensor-core head dims takes the tensor-core kernels of
+``flash_bwd_sm90.cu``; f32 with D and Dv multiples of 8 up to 256 the
+split-TF32 tensor-core kernels of ``flash_bwd_tf32.cu`` (each f32 operand
+as a tf32 hi + lo pair, three products for one: f32 accuracy); everything
+else the SIMT kernels of ``flash_attention_bwd.cu``, which also hold delta
+on every route. The
 decode splits each (row, kv head)'s live keys over a cluster of
 ``DECODE_CLUSTER`` blocks (``flash_decode_sm90.cu``); ``decode_geometry``
 and ``delta_geometry`` size the decode's shared ring and delta's blocks
@@ -35,8 +40,8 @@ route on a failure.
 
 ``BQ``, ``BK`` and ``DECODE_BLOCKS`` are the reference's tile sizes. The
 port keeps them for its gates, so it takes a kernel exactly where the
-reference does; the CUDA kernels tile by 64 inside (the SIMT backward by
-32 above head dim 128, ``bwd_rows``).
+reference does; the CUDA kernels tile by 64 inside (the SIMT and split-TF32
+backward by 32 above head dim 128, ``bwd_rows``).
 """
 from __future__ import annotations
 
@@ -75,16 +80,24 @@ def fwd_route(dtype, D: int, Dv: int) -> str:
 
 
 def bwd_route(dtype, D: int, Dv: int) -> str:
-    """Which dQ and dK/dV kernels a CUDA call runs, by ``fwd_route``'s rule:
-    "tc" (``flash_bwd_sm90.cu``, bf16 tensor cores) for bf16 with D and Dv
-    multiples of 16 in [16, 256], else "simt" (``flash_attention_bwd.cu``,
-    f32 on the CUDA cores)."""
-    return fwd_route(dtype, D, Dv)
+    """Which dQ and dK/dV kernels a CUDA call runs, from the dtype and the
+    head dims alone: "tc" (``flash_bwd_sm90.cu``, bf16 tensor cores) where
+    ``fwd_route`` says "tc" (bf16, D and Dv multiples of 16 in [16, 256]);
+    "tf32" (``flash_bwd_tf32.cu``, f32 on the tensor cores in split TF32)
+    for f32 with D and Dv multiples of 8 in [8, 256]; else "simt"
+    (``flash_attention_bwd.cu``, f32 arithmetic on the CUDA cores)."""
+    if fwd_route(dtype, D, Dv) == "tc":
+        return "tc"
+    if dtype == torch.float32 and all(
+            d % 8 == 0 and 8 <= d <= BWD_MAX_HEAD_DIM for d in (D, Dv)):
+        return "tf32"
+    return "simt"
 
 
 def bwd_rows(D: int, Dv: int) -> int:
-    """Row tile of the SIMT dQ and dK/dV kernels: 64 up to head dim 128, 32
-    above, so that their shared-memory tiles fit (``bwd_smem``)."""
+    """Row tile of the SIMT and split-TF32 dQ and dK/dV kernels: 64 up to
+    head dim 128, 32 above, so that their shared-memory tiles fit
+    (``bwd_smem``, ``bwd_tf32_smem``)."""
     return 64 if max(D, Dv) <= 128 else 32
 
 
@@ -114,6 +127,34 @@ def bwd_tc_smem(kernel: str, D: int, Dv: int) -> int:
     size = 1024 + TC_BOX_BYTES * (1 + TC_STAGES) * boxes + 8 * (2 * TC_STAGES
                                                                  + 1)
     return size + ({"dq": 0, "dkv": 4 * 2 * TC_STAGES * 64}[kernel])
+
+
+#: floats of padding a shared row of the split-TF32 kernels, and their ring
+#: depth
+TF32_PAD, TF32_STAGES = 4, 2
+
+
+def bwd_tf32_width(D: int, Dv: int) -> int:
+    """The width W both head dims are padded to in the split-TF32 kernels
+    (``padded_blocks`` of ``flash_bwd_tf32.cu``, times 8): 32, 64, 96 or
+    128 on 64-row tiles, 192 or 256 on 32-row tiles."""
+    n = -(-max(D, Dv) // 8)
+    sizes = (4, 8, 12, 16) if bwd_rows(D, Dv) == 64 else (24, 32)
+    return 8 * next(b for b in sizes if n <= b)
+
+
+def bwd_tf32_smem(kernel: str, D: int, Dv: int) -> int:
+    """Dynamic shared memory of a split-TF32 dQ ("dq") or dK/dV ("dkv")
+    block, bytes: ``dq_tf32_smem`` / ``dkv_tf32_smem`` of
+    ``flash_bwd_tf32.cu`` at the row tile ``bwd_rows`` gives. Three tiles'
+    worth (the block's own and two ring stages) of two (rows, W+4) f32
+    tiles (``bwd_tf32_width``), lse and delta rows (once for dQ, a stage
+    each for dK/dV) and three tiles' int32 segment ids."""
+    rows = bwd_rows(D, Dv)
+    lse_rows = {"dq": 1, "dkv": TF32_STAGES}[kernel]
+    ld = bwd_tf32_width(D, Dv) + TF32_PAD
+    floats = (1 + TF32_STAGES) * 2 * rows * ld + lse_rows * 2 * rows
+    return 4 * floats + 4 * (1 + TF32_STAGES) * rows
 
 
 #: blocks of the decode's thread-block cluster: the live keys of a (row, kv
@@ -398,6 +439,20 @@ def _tc_bwd_lib() -> ctypes.CDLL:
     return lib
 
 
+def _tf32_bwd_lib() -> ctypes.CDLL:
+    lib = _build.load("flash_bwd_tf32")
+    if lib.tri_flash_bwd_dq_tf32.argtypes is None:     # first use: the ABI
+        lib.tri_flash_bwd_dq_tf32.argtypes = [_P] * 8 + [_I] * 9 + [_F, _I,
+                                                                    _P]
+        lib.tri_flash_bwd_dq_tf32.restype = _I
+        lib.tri_flash_bwd_dkv_tf32.argtypes = [_P] * 9 + [_I] * 9 + [_F, _I,
+                                                                     _P]
+        lib.tri_flash_bwd_dkv_tf32.restype = _I
+        lib.tri_flash_bwd_tf32_smem.argtypes = [_I] * 4
+        lib.tri_flash_bwd_tf32_smem.restype = ctypes.c_long
+    return lib
+
+
 def _bwd_lib() -> ctypes.CDLL:
     lib = _build.load("flash_attention_bwd")
     if lib.tri_flash_bwd_dq.argtypes is None:  # first use: declare the ABI
@@ -546,8 +601,10 @@ def flash_bwd_dq_cuda(q, k, v, do, lse, delta, segments=None, *,
         if route == "tc":
             rc = _tc_bwd_lib().tri_flash_bwd_dq_tc(*ins, *dims, stream)
         else:
-            rc = _bwd_lib().tri_flash_bwd_dq(
-                *ins, _DTYPE_CODE[q.dtype], *dims, bwd_rows(D, Dv), stream)
+            fn = (_tf32_bwd_lib().tri_flash_bwd_dq_tf32 if route == "tf32"
+                  else _bwd_lib().tri_flash_bwd_dq)
+            rc = fn(*ins, _DTYPE_CODE[q.dtype], *dims, bwd_rows(D, Dv),
+                    stream)
     _raise_on(rc, f"flash_bwd_dq ({route})")
     return dq
 
@@ -573,8 +630,10 @@ def flash_bwd_dkv_cuda(q, k, v, do, lse, delta, segments=None, *,
         if route == "tc":
             rc = _tc_bwd_lib().tri_flash_bwd_dkv_tc(*ins, *dims, stream)
         else:
-            rc = _bwd_lib().tri_flash_bwd_dkv(
-                *ins, _DTYPE_CODE[q.dtype], *dims, bwd_rows(D, Dv), stream)
+            fn = (_tf32_bwd_lib().tri_flash_bwd_dkv_tf32 if route == "tf32"
+                  else _bwd_lib().tri_flash_bwd_dkv)
+            rc = fn(*ins, _DTYPE_CODE[q.dtype], *dims, bwd_rows(D, Dv),
+                    stream)
     _raise_on(rc, f"flash_bwd_dkv ({route})")
     return dk, dv
 

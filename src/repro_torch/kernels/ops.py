@@ -11,8 +11,8 @@ launched), so a run can show that the main path went through the kernels.
 forward counts by route (``flash_attention_tc``,
 ``flash_attention_simt``: ``flash_attention.fwd_route``) beside its total,
 and so do the backward's dQ and dK/dV (``flash_attention_bwd_dq_tc`` /
-``_simt``, ``flash_attention_bwd_dkv_tc`` / ``_simt``:
-``flash_attention.bwd_route``).
+``_tf32`` / ``_simt``, ``flash_attention_bwd_dkv_tc`` / ``_tf32`` /
+``_simt``: ``flash_attention.bwd_route``).
 
 The attention gates are the reference's, constants included (``BQ = BK =
 256``, ``DECODE_BLOCKS``): where a gate fails, the call runs the chunked or
@@ -47,8 +47,10 @@ LAUNCHES = {"fused_stats": 0, "fused_apply": 0, "qdq_cast": 0,
             "flash_attention_tc": 0, "flash_attention_simt": 0,
             "flash_attention_bwd_delta": 0,
             "flash_attention_bwd_dq": 0, "flash_attention_bwd_dkv": 0,
-            "flash_attention_bwd_dq_tc": 0, "flash_attention_bwd_dq_simt": 0,
+            "flash_attention_bwd_dq_tc": 0, "flash_attention_bwd_dq_tf32": 0,
+            "flash_attention_bwd_dq_simt": 0,
             "flash_attention_bwd_dkv_tc": 0,
+            "flash_attention_bwd_dkv_tf32": 0,
             "flash_attention_bwd_dkv_simt": 0,
             "flash_decode": 0}
 #: fallback reasons already warned about (one warning per reason)

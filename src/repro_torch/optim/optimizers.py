@@ -11,7 +11,7 @@ that ``train_step.pack_state`` folds into slabs.
 """
 from __future__ import annotations
 
-from typing import Any, Callable, NamedTuple
+from typing import Any, Callable, NamedTuple, Optional
 
 import torch
 
@@ -23,7 +23,9 @@ class Optimizer(NamedTuple):
     init: Callable[[Any], Any]
     update: Callable[..., Any]   # (grads, state, params, lr) -> (upd, state)
     slots: int                   # f32 state slots per param (memory model)
-    spec: OptSpec                # static hyperparameters for the kernel
+    #: static hyperparameters for the fused update kernel; None: the
+    #: reference path (``train_step.reference_step``) only
+    spec: Optional[OptSpec] = None
 
 
 def _zeros(params):

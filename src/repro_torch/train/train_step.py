@@ -197,6 +197,10 @@ def make_train_step(task, tac: TriAccelConfig, opt: Optimizer, grouping,
     do) fixes."""
     if fused_update is None:
         fused_update = resolve_fused(opt, tac)
+    if fused_update and opt.spec is None:
+        raise ValueError("fused_update=True needs an optimizer with a "
+                         "kernel spec (repro_torch.optim.optimizers.sgdm/"
+                         "adamw)")
     if not fused_update:
         return _make_reference_step(task, tac, opt, grouping, schedule,
                                     accum, grad_clip)

@@ -10,7 +10,7 @@ grad_stats' absmax bitwise, its sums within 2^-20 of the sum of the
 terms' magnitudes of an f64 sum, non-finite inputs in the same class, two
 launches bitwise equal;
 the attention kernels, forward and backward (bf16 on the tensor-core
-routes, f32 on the SIMT ones), within
+routes; f32 on the SIMT forward and the split-TF32 backward), within
 ``flash_attention.tolerance`` (in f32 1e-5 of the tensor's largest
 magnitude plus 1e-5 relative, in bf16 one bf16 ulp more); the
 differentiable ``ops.flash_attention`` within 1e-5 of each gradient's
@@ -375,10 +375,10 @@ def test_flash_backward_tc_kernels_match_plain(card, variant, hk):
 def test_flash_backward_counts_launches_by_route(card):
     """``ops.flash_bwd_dq`` / ``flash_bwd_dkv`` count each launch in their
     totals and under their route: bf16 at head dim 64 the tensor-core
-    kernels, f32 the SIMT kernels."""
+    kernels, f32 the split-TF32 kernels."""
     g = torch.Generator(device=card).manual_seed(9)
     B, S, H, K, D = 1, 256, 2, 1, 64
-    for dtype, route in ((torch.bfloat16, "tc"), (torch.float32, "simt")):
+    for dtype, route in ((torch.bfloat16, "tc"), (torch.float32, "tf32")):
         q, k, v, do = (torch.randn(s, generator=g, device=card).to(dtype)
                        for s in ((B, S, H, D), (B, S, K, D), (B, S, K, D),
                                  (B, S, H, D)))
@@ -408,3 +408,36 @@ def test_flash_forward_counts_launches_by_route(card):
                 if ops.LAUNCHES[k] != before[k]}
         assert grew == {"flash_attention": 1,
                         f"flash_attention_{route}": 1}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dims", [(64, 64), (24, 64), (192, 128)],
+                         ids=lambda d: f"{d[0]}-{d[1]}")
+def test_flash_backward_simt_kernels_through_their_raw_entry(card, dims,
+                                                             dtype):
+    """The SIMT dQ and dK/dV through their raw entry, whatever
+    ``bwd_route`` picks (f32 takes the split-TF32 kernels): against their
+    plain versions, causal and windowed, GQA rep 3."""
+    g = torch.Generator(device=card).manual_seed(13)
+    (D, Dv), (B, S, H, K) = dims, (2, 256, 6, 2)
+    q, k, v, do = (torch.randn(s, generator=g, device=card).to(dtype)
+                   for s in ((B, S, H, D), (B, S, K, D), (B, S, K, Dv),
+                             (B, S, H, Dv)))
+    lib, stream = fa._bwd_lib(), torch.cuda.current_stream().cuda_stream
+    for window in (0, 100):
+        kw = dict(causal=True, window=window)
+        o, lse = fa.flash_attention_ref(q, k, v, with_lse=True, **kw)
+        delta = fa.flash_bwd_delta_ref(o, do)
+        dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
+        ins = tuple(x.data_ptr() for x in (q, k, v, do, lse, delta)) + (
+            None,)
+        dims_ = (fa._DTYPE_CODE[dtype], B, S, H, K, D, Dv, 1, window,
+                 D ** -0.5, fa.bwd_rows(D, Dv))
+        assert lib.tri_flash_bwd_dq(*ins, dq.data_ptr(), *dims_,
+                                    stream) == 0
+        assert lib.tri_flash_bwd_dkv(*ins, dk.data_ptr(), dv.data_ptr(),
+                                     *dims_, stream) == 0
+        torch.cuda.synchronize()
+        assert _close(dq, fa.flash_bwd_dq_ref(q, k, v, do, lse, delta, **kw))
+        want = fa.flash_bwd_dkv_ref(q, k, v, do, lse, delta, **kw)
+        assert _close(dk, want[0]) and _close(dv, want[1])

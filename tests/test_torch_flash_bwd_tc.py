@@ -2,11 +2,13 @@
 the CPU: the choices its wrappers make from shapes alone, and its numerics.
 
 ``bwd_route`` picks the dQ and dK/dV kernels from the dtype and the head
-dims alone, by ``fwd_route``'s rule: bf16 with D and Dv multiples of 16 in
-[16, 256] takes the tensor-core kernels, everything else the SIMT kernels.
-Either route's wrapper refuses a CPU tensor, and a head dim above 256
-before it looks at the device. ``bwd_tc_smem`` mirrors the kernels' shared
-memory and fits a block's 232,448 bytes at every head dim they take.
+dims alone: bf16 with D and Dv multiples of 16 in [16, 256] takes the
+tensor-core kernels (``fwd_route``'s "tc"), f32 with D and Dv multiples of
+8 in [8, 256] the split-TF32 kernels ("tf32", whose forward is the SIMT
+kernel), everything else the SIMT kernels. Every route's wrapper refuses a
+CPU tensor, and a head dim above 256 before it looks at the device.
+``bwd_tc_smem`` mirrors the kernels' shared memory and fits a block's
+232,448 bytes at every head dim they take.
 
 The numerics: a plain-torch emulation of what the kernels compute, at a
 small bf16 shape (B 1, S 256, 4 q heads over 2 kv heads, D = Dv = 64 and
@@ -39,19 +41,29 @@ SOURCE = (Path(fa.__file__).resolve().parent / "csrc" / "flash_bwd_sm90.cu")
 LOG2E = 1.4426950408889634
 
 
+# the f32 cases keep the ids they had when f32 took the SIMT route
 @pytest.mark.parametrize("dtype,D,Dv,route", [
     (BF16, 64, 64, "tc"), (BF16, 16, 16, "tc"), (BF16, 128, 128, "tc"),
     (BF16, 192, 192, "tc"), (BF16, 256, 256, "tc"), (BF16, 192, 128, "tc"),
     (BF16, 64, 32, "tc"), (BF16, 32, 64, "tc"), (BF16, 8, 8, "simt"),
     (BF16, 24, 64, "simt"), (BF16, 64, 40, "simt"), (BF16, 272, 64, "simt"),
-    (F32, 64, 64, "simt"), (F32, 256, 256, "simt"), (F16, 64, 64, "simt"),
+    pytest.param(F32, 64, 64, "tf32", id="dtype12-64-64-simt"),
+    pytest.param(F32, 256, 256, "tf32", id="dtype13-256-256-simt"),
+    (F16, 64, 64, "simt"),
 ])
 def test_bwd_route_from_dtype_and_head_dims(dtype, D, Dv, route):
     """bf16 with both head dims multiples of 16 in [16, 256] takes the
-    tensor-core dQ and dK/dV; every other dtype or head dim the SIMT
-    kernels. The rule is the forward's."""
+    tensor-core dQ and dK/dV, by the forward's rule; f32 with both
+    multiples of 8 in [8, 256] the split-TF32 kernels, while its forward
+    stays on the SIMT kernel; every other dtype or head dim the SIMT
+    kernels, as the forward."""
     assert fa.bwd_route(dtype, D, Dv) == route
-    assert fa.bwd_route(dtype, D, Dv) == fa.fwd_route(dtype, D, Dv)
+    fwd = fa.fwd_route(dtype, D, Dv)
+    if dtype == BF16:
+        assert route == fwd
+    else:
+        assert fwd == "simt" and route == ("tf32" if dtype == F32 else
+                                           "simt")
 
 
 def _bwd_args(dtype, D, Dv, B=1, S=64, H=2, K=1):
@@ -61,14 +73,17 @@ def _bwd_args(dtype, D, Dv, B=1, S=64, H=2, K=1):
     return q, k, v, do, lse, lse
 
 
+# the f32 cases keep the ids they had when f32 took the SIMT route
 @pytest.mark.parametrize("dtype,D,Dv,route", [
     (BF16, 64, 64, "tc"), (BF16, 256, 128, "tc"), (BF16, 24, 24, "simt"),
-    (F32, 64, 64, "simt"), (F32, 256, 256, "simt"),
+    pytest.param(F32, 64, 64, "tf32", id="dtype3-64-64-simt"),
+    pytest.param(F32, 256, 256, "tf32", id="dtype4-256-256-simt"),
 ])
 def test_backward_wrappers_refuse_cpu_tensors_on_either_route(dtype, D, Dv,
                                                               route):
-    """dQ and dK/dV raise at the device check on either route: no route
-    runs a plain version in the kernel's place."""
+    """dQ and dK/dV raise at the device check on every route (tensor
+    cores, split TF32, SIMT): no route runs a plain version in the
+    kernel's place."""
     assert fa.bwd_route(dtype, D, Dv) == route
     args = _bwd_args(dtype, D, Dv)
     for fn in (fa.flash_bwd_dq_cuda, fa.flash_bwd_dkv_cuda):
