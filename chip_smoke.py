@@ -27,16 +27,22 @@ Phases (any failure raises and the script exits non-zero):
          serving path's tier-0 cast), bitwise; each form one device
          operation a call; timed f32 and bf16 out, beside the cast then
          ``.to(bf16)`` and a copy;
-       - flash_attention, both routes (``flash_attention.fwd_route``): the
-         tensor-core kernel (bf16) over every variant (causal, not causal,
-         window, segments; GQA rep 1 and 3; (D, Dv) in (16, 16), (64, 64),
-         (128, 128), (192, 192), (256, 256), (192, 128)) and at the main
-         paths' shapes (B 1, 2, 4, 8, S 1024, 9/3 heads, head_dim 64, with
-         the LSE); the SIMT kernel (f32 at head dims 16 and 64, bf16 at 24
-         and 40, which its route takes) over every variant at the test
-         shapes; both timed at the serving
-         prefill's shape (B 1, S 1024) beside SDPA, the SIMT kernel also
-         in f32, its route's type;
+       - flash_attention, the three routes (``flash_attention.fwd_route``):
+         the tensor-core kernel (bf16) over every variant (causal, not
+         causal, window, segments; GQA rep 1 and 3; (D, Dv) in (16, 16),
+         (64, 64), (128, 128), (192, 192), (256, 256), (192, 128)) and at
+         the main paths' shapes (B 1, 2, 4, 8, S 1024, 9/3 heads, head_dim
+         64, with the LSE); the split-TF32 kernel (f32) over every variant,
+         GQA rep 1-3 and (D, Dv) in (16, 16), (64, 64), (64, 32), (32, 64),
+         (8, 8), (128, 128), (192, 128), (256, 256), its shared memory
+         against the source's; the SIMT kernel (bf16 at 24 and 40, which
+         its route takes; f32 at head dims 16 and 64 through its raw entry)
+         over every variant at the test shapes; the tensor-core and SIMT
+         kernels timed at the serving prefill's shape (B 1, S 1024) beside
+         SDPA; in f32 at B 1 and B 8 the split-TF32 and SIMT kernels in
+         turns beside SDPA's f32 forward and both bounds (3xTF32,
+         f32-FMA), and at B 8 the f32 forward + backward through
+         ``ops.flash_attention`` beside SDPA's;
        - flash_decode (the split-key kernel, a cluster of
          ``DECODE_CLUSTER`` blocks a row and kv head) over ragged lengths
          (0, 1, L, between, and the split's edges), head dims (16, 64,
@@ -63,8 +69,9 @@ Phases (any failure raises and the script exits non-zero):
          beside SDPA's f32 backward); the differentiable
          ``ops.flash_attention`` against autograd through the plain
          forward in f32 and in bf16, head dim 256 included, its launches
-         counted by route (the f32 backwards' split-TF32 launches go into
-         the ``_tf32`` rows as ``f32_function_launches``);
+         counted by route (the f32 runs' split-TF32 forward, dQ and dK/dV
+         launches go into the ``_tf32`` rows as
+         ``f32_function_launches``);
        - grad_stats over the reference's test shapes (f32, bf16), its
          benchmark's (1024, 1024) and its registry's (1,000,000,) f32, an
          empty tensor and tensors holding NaN, +inf, -inf; absmax bitwise,
@@ -96,7 +103,8 @@ Phases (any failure raises and the script exits non-zero):
          30 layers, S 1024, rungs 2/4/8, 20 steps (``LM_TRAIN_ARGS``,
          t_ctrl / t_curv lowered to 5 / 10 so both controls fire); the
          counts must equal 2 x 30 forward launches (forward and remat
-         recompute, all on the tensor-core route) and 30 of each backward
+         recompute, all on the tensor-core route, none on the split-TF32
+         or SIMT ones) and 30 of each backward
          kernel a step (dQ and dK/dV all on the tensor-core route); then
          the tier-0 serving set of the trained masters from
          ``Trainer.serving_amax_tree`` (qdq_cast, one-pass, one launch a
@@ -152,9 +160,16 @@ the 181 leaves, 181 launches). The reference paths make no
 grad_stats launch themselves, as in the reference. The flash forward's
 rows carry ``fwd_route``: ``flash_attention`` and
 ``flash_attention@lm_train`` are the tensor-core kernel, which the main
-paths run; ``flash_attention_simt`` is the SIMT kernel f32 callers get (no
-main path launches it), timed in f32. The backward's dQ and dK/dV rows
-carry ``bwd_route`` the same way: ``flash_attention_bwd_dq`` and
+paths run; ``flash_attention_tf32`` the split-TF32 kernel of f32 callers
+(no main path launches it; its ``f32_function_launches`` come from the
+f32 autograd check), timed in f32 at B 1 with the TF32 bound
+(``f32_fma_bound_ms`` beside it; ``simt_ms`` the SIMT kernel in the same
+turns; the ``b8_*`` keys the same at B 8, ``b8_fwd_bwd_ms`` the f32
+forward + backward and ``b8_library_fwd_bwd_ms`` SDPA's);
+``flash_attention_simt`` the SIMT kernel (head dims the tensor-core
+kernels refuse), timed in f32 through its raw entry in those turns. The
+backward's dQ and dK/dV rows carry ``bwd_route`` (the same rule) the same
+way: ``flash_attention_bwd_dq`` and
 ``flash_attention_bwd_dkv`` are the tensor-core kernels the LM paths run;
 ``flash_attention_bwd_dq_tf32`` and ``flash_attention_bwd_dkv_tf32`` the
 split-TF32 kernels of f32 callers (no main path launches them; their
@@ -214,6 +229,8 @@ KERNELS = {
                           "src/repro/kernels/qdq_cast.py:116"),
     "flash_attention": (f"{CSRC}/flash_fwd_sm90.cu",
                         "src/repro/kernels/flash_attention.py:222"),
+    "flash_attention_tf32": (f"{CSRC}/flash_fwd_tf32.cu",
+                             "src/repro/kernels/flash_attention.py:222"),
     "flash_attention_simt": (f"{CSRC}/flash_attention.cu",
                              "src/repro/kernels/flash_attention.py:222"),
     "flash_attention_bwd_delta": (
@@ -1393,6 +1410,11 @@ def _sdpa(q, k, v, **kw):
 #: the test and LM head dims, the wide heads, and a Dv != D
 TC_HEAD_DIMS = ((16, 16), (64, 64), (128, 128), (192, 192), (256, 256),
                 (192, 128))
+#: (D, Dv) at which the split-TF32 forward is held to the plain version:
+#: the test and LM head dims, both Dv != D orders, the narrowest, and the
+#: wide heads
+TF32_HEAD_DIMS = ((16, 16), (64, 64), (64, 32), (32, 64), (8, 8), (128, 128),
+                  (192, 128), (256, 256))
 
 
 def _flash_pair(q, k, v, seg, kw, what, route):
@@ -1409,18 +1431,129 @@ def _flash_pair(q, k, v, seg, kw, what, route):
     return err
 
 
-def check_flash(dev, bw, f32_ops, tc_rate):
-    """Both forward kernels against the plain version. The tensor-core
+def _simt_fwd_args(q, k, v, seg, o, lse, causal, window):
+    """``tri_flash_fwd``'s arguments (the SIMT forward's raw entry), from
+    tensors on the card."""
+    from repro_torch.kernels import flash_attention as fa
+    B, S, H, D = q.shape
+    K, Dv = k.shape[2], v.shape[-1]
+    return (q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            None if seg is None else seg.data_ptr(), o.data_ptr(),
+            None if lse is None else lse.data_ptr(), fa._DTYPE_CODE[q.dtype],
+            B, S, H, K, D, Dv, int(causal), int(window), D ** -0.5,
+            torch.cuda.current_stream().cuda_stream)
+
+
+def _simt_fwd_raw(q, k, v, seg, kw, what):
+    """The SIMT forward through its raw entry (``tri_flash_fwd``, whatever
+    ``fwd_route`` picks for these inputs: f32 at head dims that are
+    multiples of 8 now takes the split-TF32 kernel) against the plain
+    forward: o within ``tolerance``, the LSE within ``close_lse`` -> max
+    |err|."""
+    from repro_torch.kernels import flash_attention as fa
+    o = torch.empty(q.shape[:3] + v.shape[-1:], dtype=q.dtype,
+                    device=q.device)
+    lse = torch.empty((q.shape[0], q.shape[2], q.shape[1]), device=q.device)
+    check(fa._lib().tri_flash_fwd(*_simt_fwd_args(q, k, v, seg, o, lse,
+                                                  **kw)) == 0,
+          f"{what}: SIMT forward launched")
+    torch.cuda.synchronize()
+    o_r, lse_r = fa.flash_attention_ref(q, k, v, seg, with_lse=True, **kw)
+    err = close(o, o_r, what + " simt")
+    close_lse(lse, lse_r, what + " simt")
+    return err
+
+
+def _time_f32_forward(q, k, v, bw, f32_ops, tf32_rate, what):
+    """The f32 forward at one causal shape (no LSE): the split-TF32 kernel
+    (f32's route) and the SIMT kernel through its raw entry, each held to
+    the plain version here first, then timed in turns in both orders; the
+    plain version, SDPA's f32 forward, the 3xTF32 bound and the f32-FMA
+    bound -> {key: ms, and each kernel's max |err|}."""
+    from repro_torch.kernels import flash_attention as fa
+    B, S, H, D = q.shape
+    K = k.shape[2]
+    err = {"err_tf32": close(fa.flash_attention_cuda(q, k, v, causal=True),
+                             fa.flash_attention_ref(q, k, v, causal=True),
+                             f"{what} B{B} tf32"),
+           "err_simt": _simt_fwd_raw(q, k, v, None, dict(causal=True,
+                                                         window=0),
+                                     f"{what} B{B}")}
+    o = torch.empty_like(q)
+    tf32, simt = fa._tf32_fwd_lib(), fa._lib()
+    args = _simt_fwd_args(q, k, v, None, o, None, True, 0)
+    raw = {"tf32": lambda: tf32.tri_flash_fwd_tf32(*args),
+           "simt": lambda: simt.tri_flash_fwd(*args)}
+    turns = {r: [] for r in raw}
+    for order in (("tf32", "simt"), ("simt", "tf32")):
+        for r in order:
+            turns[r].append(time_ms(raw[r], iters=10 if r == "tf32" else 4))
+    pairs = B * H * S * (S + 1) / 2            # causal pairs this run needs
+    nbytes = 4 * (2 * B * S * H * D + 2 * B * S * K * D)
+    nops = pairs * 4 * D
+    t = {"tf32": statistics.median(turns["tf32"]),
+         "simt": statistics.median(turns["simt"]),
+         "plain": time_ms(lambda: fa.flash_attention_ref(q, k, v), iters=2,
+                          reps=3),
+         "sdpa": time_ms(lambda: _sdpa(q, k, v, is_causal=True), iters=5),
+         "tf32_bound": bound(nbytes, 3 * nops, bw, tf32_rate),
+         "fma_bound": bound(nbytes, nops, bw, f32_ops), **err}
+    log(f"{what} B{B} S{S} H{H}/K{K} D{D} f32 causal: split-TF32 kernel "
+        f"{t['tf32']:.5f} ms (turns "
+        f"{', '.join(f'{x:.5f}' for x in turns['tf32'])}), SIMT kernel "
+        f"{t['simt']:.5f} ms (turns "
+        f"{', '.join(f'{x:.5f}' for x in turns['simt'])}), plain "
+        f"{t['plain']:.4f} ms, sdpa (f32) {t['sdpa']:.4f} ms, bound "
+        f"{t['tf32_bound'][0]:.5f} ms ({t['tf32_bound'][1]}, three TF32 "
+        f"products a product at the tensor cores' dense rate; the f32-FMA "
+        f"bound {t['fma_bound'][0]:.5f} ms)")
+    return t
+
+
+def _time_f32_fwd_bwd(q, k, v, gen) -> dict:
+    """The f32 forward and backward pair at one causal shape: through
+    ``ops.flash_attention`` and ``torch.autograd.grad`` (the split-TF32
+    forward with LSE, delta, the split-TF32 dQ and dK/dV) beside SDPA's f32
+    forward and backward, in turns -> {"kernels": ms, "sdpa": ms}."""
+    from repro_torch.kernels import ops
+    qg, kg, vg = (x.detach().requires_grad_(True) for x in (q, k, v))
+    do = torch.randn(q.shape, generator=gen, device=q.device)
+    do_t = do.transpose(1, 2)
+
+    def ours():
+        torch.autograd.grad(ops.flash_attention(qg, kg, vg, causal=True),
+                            (qg, kg, vg), do)
+
+    def lib():
+        torch.autograd.grad(_sdpa(qg, kg, vg, is_causal=True), (qg, kg, vg),
+                            do_t)
+    turns = {"kernels": [], "sdpa": []}
+    for order in ((ours, lib), (lib, ours)):
+        for fn in order:
+            turns["kernels" if fn is ours else "sdpa"].append(
+                time_ms(fn, iters=5, reps=3))
+    return {key: statistics.median(x) for key, x in turns.items()}
+
+
+def check_flash(dev, bw, f32_ops, tc_rate, tf32_rate):
+    """The three forward kernels against the plain version. The tensor-core
     kernel (bf16) over every variant (causal, not causal, window,
     segments), GQA rep 1 and 3 and each (D, Dv) of ``TC_HEAD_DIMS`` at S
     256, then at the main paths' shapes: B 1, 2, 4, 8, S 1024, 9 heads, kv
-    3, head_dim 64, causal, with the LSE. The SIMT kernel over every
-    variant at the test shapes (S 256 and 512, GQA rep 2 and 3), in f32
-    at head dims 16 and 64 and in bf16 at 24 and 40 (``fwd_route`` sends
-    both there). Each
-    held to ``tolerance`` (o) and ``close_lse`` (LSE). Timed at the serving
-    prefill's shape (B 1, S 1024, causal, bf16, no LSE): both kernels,
-    the plain version, SDPA and the bound; the SIMT kernel also in f32."""
+    3, head_dim 64, causal, with the LSE. The split-TF32 kernel (f32) over
+    every variant, GQA rep 1, 2 and 3 and each (D, Dv) of
+    ``TF32_HEAD_DIMS`` at S 256; ``fwd_tf32_smem`` must equal the source's
+    own size at every head dim the route takes. The SIMT kernel over every
+    variant at the test shapes (S 256 and 512, GQA rep 2 and 3): in bf16
+    at head dims 24 and 40 through its route, in f32 at head dims 16 and
+    64 through its raw entry (f32 there takes the split-TF32 route). Each
+    held to ``tolerance`` (o) and ``close_lse`` (LSE). Timed at the
+    serving prefill's shape (B 1, S 1024, causal, bf16, no LSE): the
+    tensor-core and SIMT kernels, the plain version, SDPA and the bound.
+    Then in f32 at B 1 and B 8 (S 1024, 9/3 heads, D 64, causal): the
+    split-TF32 and SIMT kernels in turns, the plain version, SDPA's f32
+    forward, the 3xTF32 and f32-FMA bounds; at B 8 also the f32 forward
+    and backward through ``ops.flash_attention`` beside SDPA's."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ops
     gen = torch.Generator(device=dev).manual_seed(6)
@@ -1451,6 +1584,23 @@ def check_flash(dev, bw, f32_ops, tc_rate):
         err_tc = max(err_tc, _flash_pair(q, k, v, None, kw_of("causal"),
                                          f"flash tc main shape B{B}", "tc"))
         n_tc += 1
+    tf32 = fa._tf32_fwd_lib()
+    dims8 = range(8, 257, 8)
+    off = [(D_, Dv_) for D_ in dims8 for Dv_ in dims8
+           if tf32.tri_flash_fwd_tf32_smem(D_, Dv_)
+           != fa.fwd_tf32_smem(D_, Dv_)]
+    check(not off, f"fwd_tf32_smem mirrors the split-TF32 source: {off[:4]}")
+    err_tf, n_tf = 0.0, 0
+    for D_, Dv_ in TF32_HEAD_DIMS:
+        for H_, K_ in ((4, 4), (4, 2), (9, 3)):
+            q, k, v = inputs(2, 256, H_, K_, D_, Dv_, torch.float32)
+            for variant in variants:
+                seg = _segments(2, 256, dev, D_ + Dv_ + H_) \
+                    if variant == "segments" else None
+                err_tf = max(err_tf, _flash_pair(
+                    q, k, v, seg, kw_of(variant),
+                    f"flash tf32 {D_}/{Dv_} {H_}/{K_} {variant}", "tf32"))
+                n_tf += 1
     err_simt, n_simt = 0.0, 0
     for S_ in (256, 512):
         for H_, K_ in ((4, 2), (9, 3)):
@@ -1460,15 +1610,17 @@ def check_flash(dev, bw, f32_ops, tc_rate):
                 for variant in variants:
                     seg = _segments(2, S_, dev, S_) \
                         if variant == "segments" else None
-                    err_simt = max(err_simt, _flash_pair(
-                        q, k, v, seg, kw_of(variant),
-                        f"flash simt {S_} {H_}/{K_} {D_} {dtype} "
-                        f"{variant}", "simt"))
+                    what = f"flash simt {S_} {H_}/{K_} {D_} {dtype} {variant}"
+                    err_simt = max(err_simt, _simt_fwd_raw(
+                        q, k, v, seg, kw_of(variant), what)
+                        if dtype == torch.float32 else _flash_pair(
+                            q, k, v, seg, kw_of(variant), what, "simt"))
                     n_simt += 1
     torch.cuda.synchronize()
-    log(f"flash_attention: tensor-core kernel {n_tc} variants, SIMT kernel "
-        f"{n_simt} variants within tolerance (max|err| {err_tc:.3g}, "
-        f"{err_simt:.3g})")
+    log(f"flash_attention: tensor-core kernel {n_tc} variants, split-TF32 "
+        f"kernel {n_tf} variants, SIMT kernel {n_simt} variants (f32 through "
+        f"its raw entry) within tolerance (max|err| {err_tc:.3g}, "
+        f"{err_tf:.3g}, {err_simt:.3g})")
 
     B = 1
     q, k, v = inputs(B, S, H, K, D, D, torch.bfloat16)
@@ -1484,13 +1636,9 @@ def check_flash(dev, bw, f32_ops, tc_rate):
                                 None, o.data_ptr(), None, B, S, H, K, D, D,
                                 1, 0, D ** -0.5, stream)
 
-    def raw_simt(x, y, z, out, code):
-        simt_lib.tri_flash_fwd(x.data_ptr(), y.data_ptr(), z.data_ptr(),
-                               None, out.data_ptr(), None, code, B, S, H, K,
-                               D, D, 1, 0, D ** -0.5, stream)
-
+    args16 = _simt_fwd_args(q, k, v, None, o, None, True, 0)
     ms = time_ms(raw_tc, iters=20)
-    simt_bf16 = time_ms(lambda: raw_simt(q, k, v, o, 1), iters=20)
+    simt_bf16 = time_ms(lambda: simt_lib.tri_flash_fwd(*args16), iters=20)
     plain_ms = time_ms(lambda: fa.flash_attention_ref(q, k, v), iters=3)
     lib_ms = time_ms(lambda: _sdpa(q, k, v, is_causal=True), iters=20)
     pairs = B * H * S * (S + 1) / 2            # causal pairs this run needs
@@ -1505,25 +1653,35 @@ def check_flash(dev, bw, f32_ops, tc_rate):
         "bound_ms": b_ms, "bound_by": by, "library_ms": lib_ms,
         "fwd_route": "tc"}}
 
-    # the SIMT kernel at the same shape in f32, the type its route takes
-    q32, k32, v32 = (x.float() for x in (q, k, v))
-    o32 = torch.empty_like(q32)
-    err_simt = max(err_simt, close(
-        fa.flash_attention_cuda(q32, k32, v32, causal=True),
-        fa.flash_attention_ref(q32, k32, v32, causal=True),
-        "flash simt main shape f32"))
-    ms32 = time_ms(lambda: raw_simt(q32, k32, v32, o32, 0), iters=10)
-    plain32 = time_ms(lambda: fa.flash_attention_ref(q32, k32, v32),
-                      iters=3)
-    lib32 = time_ms(lambda: _sdpa(q32, k32, v32, is_causal=True), iters=10)
-    b32, by32 = bound(2 * nbytes, pairs * 4 * D, bw, f32_ops)
-    log(f"flash_attention_simt B{B} S{S} H{H}/K{K} D{D} f32 causal: kernel "
-        f"{ms32:.4f} ms, plain {plain32:.4f} ms, sdpa {lib32:.4f} ms, bound "
-        f"{b32:.5f} ms ({by32}, f32 outside the tensor cores)")
+    # f32 at the same shape (row 6c's) and at B 8: the split-TF32 kernel,
+    # f32's route, beside the SIMT kernel f32 took before
+    t1 = _time_f32_forward(*(x.float() for x in (q, k, v)), bw, f32_ops,
+                           tf32_rate, "flash_attention_tf32")
+    q8, k8, v8 = inputs(8, S, H, K, D, D, torch.float32)
+    t8 = _time_f32_forward(q8, k8, v8, bw, f32_ops, tf32_rate,
+                           "flash_attention_tf32")
+    pair = _time_f32_fwd_bwd(q8, k8, v8, gen)
+    log(f"  f32 forward + backward B8 S{S} H{H}/K{K} D{D} causal: "
+        f"ops.flash_attention + autograd.grad (split TF32) "
+        f"{pair['kernels']:.4f} ms, sdpa forward + backward (f32) "
+        f"{pair['sdpa']:.4f} ms")
+    out["flash_attention_tf32"] = {
+        "max_abs_err": max(err_tf, t1["err_tf32"], t8["err_tf32"]),
+        "ms": t1["tf32"], "plain_ms": t1["plain"],
+        "bound_ms": t1["tf32_bound"][0], "bound_by": t1["tf32_bound"][1],
+        "library_ms": t1["sdpa"], "f32_fma_bound_ms": t1["fma_bound"][0],
+        "fwd_route": "tf32", "simt_ms": t1["simt"], "b8_ms": t8["tf32"],
+        "b8_simt_ms": t8["simt"], "b8_plain_ms": t8["plain"],
+        "b8_library_ms": t8["sdpa"], "b8_bound_ms": t8["tf32_bound"][0],
+        "b8_f32_fma_bound_ms": t8["fma_bound"][0],
+        "b8_fwd_bwd_ms": pair["kernels"],
+        "b8_library_fwd_bwd_ms": pair["sdpa"]}
     out["flash_attention_simt"] = {
-        "max_abs_err": err_simt, "ms": ms32, "plain_ms": plain32,
-        "bound_ms": b32, "bound_by": by32, "library_ms": lib32,
-        "fwd_route": "simt"}
+        "max_abs_err": max(err_simt, t1["err_simt"], t8["err_simt"]),
+        "ms": t1["simt"], "plain_ms": t1["plain"],
+        "bound_ms": t1["fma_bound"][0], "bound_by": t1["fma_bound"][1],
+        "library_ms": t1["sdpa"], "fwd_route": "simt",
+        "bf16_ms": simt_bf16, "b8_ms": t8["simt"]}
     return out
 
 
@@ -1942,8 +2100,8 @@ def time_wide_heads(dev, gen, bw, tc_rate, D=256) -> None:
 def check_flash_function(dev) -> dict:
     """The differentiable ``ops.flash_attention`` (forward kernel with LSE,
     then the three backward kernels) against autograd through the plain
-    forward in f32 on the same inputs, on the card. In f32 (the SIMT
-    forward, the split-TF32 dQ and dK/dV) each gradient within 1e-5 of its
+    forward in f32 on the same inputs, on the card. In f32 (the split-TF32
+    forward, dQ and dK/dV) each gradient within 1e-5 of its
     largest magnitude (the CPU parity test measures 4e-7 between the two
     formulations; the card adds its own summation order). In bf16 (the
     tensor-core routes, forward and backward) within 2^-7 of it: the
@@ -1952,13 +2110,14 @@ def check_flash_function(dev) -> dict:
     through the plain versions stays within it on the CPU
     (``tests/test_torch_flash_bwd_tc.py``), and the kernels add their one
     ulp. Head dim 64, and once 256. The launches are counted on each
-    route -> the split-TF32 dQ and dK/dV launches of the f32 backwards."""
+    route -> the split-TF32 forward, dQ and dK/dV launches of the f32
+    runs."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ops
     gen = torch.Generator(device=dev).manual_seed(9)
     f32_launches = {}
     for dtype, route, bwd, limit in (
-            (torch.float32, "simt", "tf32", 1e-5),
+            (torch.float32, "tf32", "tf32", 1e-5),
             (torch.bfloat16, "tc", "tc", 2.0 ** -7)):
         worst, n = 0.0, 0
         start = dict(ops.LAUNCHES)
@@ -2001,9 +2160,9 @@ def check_flash_function(dev) -> dict:
             f"autograd in f32 (relative to each gradient's max; limit "
             f"{limit:.3g}); launches {grew}")
         if dtype == torch.float32:
-            f32_launches = {f"flash_attention_bwd_{k}_tf32":
-                            grew[f"flash_attention_bwd_{k}_tf32"]
-                            for k in ("dq", "dkv")}
+            f32_launches = {k: grew[k] for k in (
+                "flash_attention_tf32", "flash_attention_bwd_dq_tf32",
+                "flash_attention_bwd_dkv_tf32")}
     return f32_launches
 
 
@@ -2353,7 +2512,8 @@ def lm_train_main_path():
           f"{len(lines)} JSON lines")
     check(all(math.isfinite(m["loss"]) for m in lines), f"losses {lines}")
     want = {"flash_attention": 2 * L * steps,
-            "flash_attention_tc": 2 * L * steps, "flash_attention_simt": 0,
+            "flash_attention_tc": 2 * L * steps, "flash_attention_tf32": 0,
+            "flash_attention_simt": 0,
             "flash_attention_bwd_delta": L * steps,
             "flash_attention_bwd_dq": L * steps,
             "flash_attention_bwd_dq_tc": L * steps,
@@ -2776,6 +2936,7 @@ def serve_main_path(seed: int = 0):
     check(launches["flash_attention"] == n_layers * runs["admit"],
           f"flash_attention launches {launches} vs {runs}")
     check(launches["flash_attention_tc"] == launches["flash_attention"]
+          and launches["flash_attention_tf32"] == 0
           and launches["flash_attention_simt"] == 0,
           f"every prefill forward on the tensor-core route: {launches}")
     check(launches["flash_decode"] == n_layers * runs["decode"],
@@ -3148,7 +3309,7 @@ def main() -> int:
             f"registers a thread, {spills} bytes of spills, static smem "
             f"at most {max(smem, default=0)} bytes")
         if s in ("flash_fwd_sm90", "flash_bwd_sm90", "flash_attention_bwd",
-                 "flash_bwd_tf32", "flash_decode_sm90"):
+                 "flash_fwd_tf32", "flash_bwd_tf32", "flash_decode_sm90"):
             for kern, nreg, spill in ptxas_kernels(text):
                 log(f"    {s}: {kern}: {nreg} registers, {spill} bytes of "
                     "spill stores")
@@ -3175,7 +3336,7 @@ def main() -> int:
         lm_view, dev, bw, f32_ops, what="smollm-135m", **lm_var)
     del lm_view
     res.update(check_qdq(dev, bw, f32_ops))
-    res.update(check_flash(dev, bw, f32_ops, tc_ops))
+    res.update(check_flash(dev, bw, f32_ops, tc_ops, tf32_ops))
     res["flash_decode"] = check_decode(dev, bw, tc_ops)
     delta_err = check_delta(dev)
     res.update(check_flash_bwd(dev, bw, f32_ops, tc_ops, tf32_ops))
@@ -3256,10 +3417,12 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     nt_launches, gs_lm = no_triaccel_main_path(bw, f32_ops)
-    # the SIMT forward's launches on the three LM paths (each checked 0)
-    launches["flash_attention_simt"] = sum(
-        d["flash_attention_simt"]
-        for d in (serve_launches, lm_launches, nt_launches))
+    # the split-TF32 and SIMT forwards' launches on the three LM paths
+    # (each checked 0; the f32 autograd check counts the split-TF32 one's)
+    for route in ("tf32", "simt"):
+        launches[f"flash_attention_{route}"] = sum(
+            d[f"flash_attention_{route}"]
+            for d in (serve_launches, lm_launches, nt_launches))
     # likewise the split-TF32 and SIMT dQ and dK/dV on the two LM training
     # paths (f32 callers' routes; the f32 autograd check counts them)
     for k in ("flash_attention_bwd_dq", "flash_attention_bwd_dkv"):

@@ -1,6 +1,11 @@
 // Flash attention for Hopper (sm_90a), hand-written CUDA: the prefill
-// forward on the CUDA cores (f32, and head dims the tensor-core kernel of
-// flash_fwd_sm90.cu does not take; flash_attention.fwd_route).
+// forward on the CUDA cores, for what neither tensor-core route takes
+// (flash_attention.fwd_route): bf16 at head dims that are not multiples of
+// 16 (flash_fwd_sm90.cu takes the rest) and f32 at head dims that are not
+// multiples of 8 (flash_fwd_tf32.cu takes the rest). No model the port
+// supports has such head dims; the kernel stays as the route of last
+// resort, and tri_flash_fwd still takes any f32 or bf16 call (its tests
+// reach it through this raw entry).
 //
 // Replaces the Pallas TPU kernel of src/repro/kernels/flash_attention.py:
 //   tri_flash_fwd     <- _fwd_call (_fwd_body: causal, static window,

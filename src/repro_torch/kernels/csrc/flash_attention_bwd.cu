@@ -16,8 +16,10 @@
 // flops a byte, bound by arithmetic. These kernels compute in f32 on the
 // CUDA cores, so their real ceiling is the f32 SIMT rate, some 15x below the
 // bf16 tensor-core bound. bf16 calls at head dims the tensor cores take
-// run dQ and dK/dV of flash_bwd_sm90.cu instead (flash_attention.bwd_route);
-// these serve f32 and the other head dims, and delta serves every call.
+// run dQ and dK/dV of flash_bwd_sm90.cu instead, f32 calls at head dims
+// that are multiples of 8 those of flash_bwd_tf32.cu
+// (flash_attention.bwd_route); these serve the other head dims, and delta
+// serves every call.
 //
 // Design. The TPU kernels carry accumulators across a sequential grid axis
 // (_dq_body over ki, _dkv_body over (r, qi)); here blocks run in no order,

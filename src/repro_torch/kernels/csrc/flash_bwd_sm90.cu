@@ -8,9 +8,10 @@
 //                                        tiles)
 //   tri_flash_bwd_dkv_tc <- _dkv_kernel (_dkv_body: dK, dV summed over the
 //                                        GQA group's q heads and q tiles)
-// f32 inputs and other head dims take the SIMT kernels of
-// flash_attention_bwd.cu (flash_attention.bwd_route picks, from the dtype
-// and the head dims alone); delta stays there on every route.
+// f32 inputs take the split-TF32 kernels of flash_bwd_tf32.cu, other head
+// dims the SIMT kernels of flash_attention_bwd.cu (flash_attention.bwd_route
+// picks, from the dtype and the head dims alone); delta stays in
+// flash_attention_bwd.cu on every route.
 //
 // What they compute, from the forward's saved lse and delta = rowsum(dO O):
 //   P = exp(scale Q K^T - lse), 0 at masked pairs; dS = P (dO V^T - delta)

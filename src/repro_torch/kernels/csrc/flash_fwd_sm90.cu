@@ -5,8 +5,9 @@
 //   tri_flash_fwd_tc <- _fwd_call (_fwd_body: causal, static window,
 //                       optional segments, optional LSE residual), for
 //                       bf16 inputs with head dims D, Dv each a multiple of
-//                       16 up to 256. f32 inputs and other head dims take
-//                       the SIMT kernel of flash_attention.cu
+//                       16 up to 256. f32 inputs take the split-TF32
+//                       kernel of flash_fwd_tf32.cu, other head dims the
+//                       SIMT kernel of flash_attention.cu
 //                       (flash_attention.fwd_route picks, from the dtype
 //                       and the head dims alone).
 //

@@ -1,11 +1,11 @@
 // Hopper (sm_90a) building blocks shared by the tensor-core flash kernels
-// (flash_fwd_sm90.cu, flash_bwd_sm90.cu, flash_bwd_tf32.cu): mbarriers, TMA
-// and bulk loads, the 128-byte-swizzle wgmma descriptors, the bf16 wgmma
-// m64nNk16 (N = 64, 32, 16) with A from shared memory and m64n64k16 with A
-// from registers, the bf16 hi/lo split of an f32 accumulator into A
-// fragments, the tile skips and masks of _block_needed / _tile_mask (at
-// 64 x 64 tiles unless a caller names another size), and the host's
-// tensor-map encoding.
+// (flash_fwd_sm90.cu, flash_bwd_sm90.cu; flash_fwd_tf32.cu and
+// flash_bwd_tf32.cu through tf32.cuh): mbarriers, TMA and bulk loads, the
+// 128-byte-swizzle wgmma descriptors, the bf16 wgmma m64nNk16 (N = 64,
+// 32, 16) with A from shared memory and m64n64k16 with A from registers,
+// the bf16 hi/lo split of an f32 accumulator into A fragments, the tile
+// skips and masks of _block_needed / _tile_mask (at 64 x 64 tiles unless
+// a caller names other sizes), and the host's tensor-map encoding.
 //
 // Tiles are 64 rows of 64 bf16 columns: one 128-byte row a sequence
 // position, 8 KB a box, written by the TMA with 128-byte swizzle. A head
@@ -224,30 +224,30 @@ __device__ __forceinline__ void frag_hilo(const float (&x)[N],
     }
 }
 
-// _block_needed at T-row tiles (64 unless the caller says otherwise): does
-// tile (q0, k0) hold a kept pair? `segrow` is the batch row's segment ids
-// (non-decreasing) or null.
-template <int T = TILE>
+// _block_needed at TQ-row q tiles and TK-row k tiles (64 unless the caller
+// says otherwise; TK = TQ unless named): does tile (q0, k0) hold a kept
+// pair? `segrow` is the batch row's segment ids (non-decreasing) or null.
+template <int TQ = TILE, int TK = TQ>
 __device__ __forceinline__ bool tile_needed(int causal, int window,
                                             const int* segrow, int q0,
                                             int k0) {
-  if (causal && k0 > q0 + T - 1) return false;
-  if (window > 0 && k0 + T - 1 < q0 - (window - 1)) return false;
-  if (segrow && !(segrow[q0 + T - 1] >= segrow[k0] &&
-                  segrow[q0] <= segrow[k0 + T - 1]))
+  if (causal && k0 > q0 + TQ - 1) return false;
+  if (window > 0 && k0 + TK - 1 < q0 - (window - 1)) return false;
+  if (segrow && !(segrow[q0 + TQ - 1] >= segrow[k0] &&
+                  segrow[q0] <= segrow[k0 + TK - 1]))
     return false;
   return true;
 }
 
 // does tile (q0, k0) hold a masked pair? (else every pair is kept)
-template <int T = TILE>
+template <int TQ = TILE, int TK = TQ>
 __device__ __forceinline__ bool tile_masked(int causal, int window,
                                             const int* segrow, int q0,
                                             int k0) {
-  if (causal && k0 + T - 1 > q0) return true;
-  if (window > 0 && (q0 + T - 1) - k0 >= window) return true;
-  if (segrow && !(segrow[q0] == segrow[q0 + T - 1] &&
-                  segrow[k0] == segrow[k0 + T - 1] &&
+  if (causal && k0 + TK - 1 > q0) return true;
+  if (window > 0 && (q0 + TQ - 1) - k0 >= window) return true;
+  if (segrow && !(segrow[q0] == segrow[q0 + TQ - 1] &&
+                  segrow[k0] == segrow[k0 + TK - 1] &&
                   segrow[q0] == segrow[k0]))
     return true;
   return false;

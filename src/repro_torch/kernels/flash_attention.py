@@ -3,10 +3,10 @@ segments, optional LSE residual), its backward (delta, dQ, dK/dV from the
 saved LSE) and the ragged single-token decode.
 
 Two forms of each: the hand-written CUDA kernels for Hopper
-(``csrc/flash_fwd_sm90.cu``, ``csrc/flash_attention.cu``,
-``csrc/flash_bwd_sm90.cu``, ``csrc/flash_bwd_tf32.cu``,
-``csrc/flash_attention_bwd.cu`` and ``csrc/flash_decode_sm90.cu``, bound
-through ``ctypes``: ``*_cuda``) and
+(``csrc/flash_fwd_sm90.cu``, ``csrc/flash_fwd_tf32.cu``,
+``csrc/flash_attention.cu``, ``csrc/flash_bwd_sm90.cu``,
+``csrc/flash_bwd_tf32.cu``, ``csrc/flash_attention_bwd.cu`` and
+``csrc/flash_decode_sm90.cu``, bound through ``ctypes``: ``*_cuda``) and
 their plain PyTorch versions
 (``*_ref``), which mirror ``repro/kernels/ref.py`` (full softmax with the
 finite ``NEG_INF``) and, for the backward, the math of the reference's
@@ -21,27 +21,26 @@ A row of length 0 gives zeros, as the reference kernel's
 ``l = max(l, 1e-30)`` clamp gives (the reference's full-softmax oracle
 would average V there; the kernels are what the JAX package runs).
 
-The forward has two kernels, and ``fwd_route`` picks one from the dtype
-and the head dims alone: bf16 with D and Dv multiples of 16 up to 256 runs
-the tensor-core kernel (``flash_fwd_sm90.cu``: wgmma, TMA), everything
-else the f32 SIMT kernel (``flash_attention.cu``). The backward's dQ and
-dK/dV pick one of three through ``bwd_route``: bf16 at the forward's
-tensor-core head dims takes the tensor-core kernels of
-``flash_bwd_sm90.cu``; f32 with D and Dv multiples of 8 up to 256 the
-split-TF32 tensor-core kernels of ``flash_bwd_tf32.cu`` (each f32 operand
-as a tf32 hi + lo pair, three products for one: f32 accuracy); everything
-else the SIMT kernels of ``flash_attention_bwd.cu``, which also hold delta
-on every route. The
-decode splits each (row, kv head)'s live keys over a cluster of
-``DECODE_CLUSTER`` blocks (``flash_decode_sm90.cu``); ``decode_geometry``
-and ``delta_geometry`` size the decode's shared ring and delta's blocks
-from the shapes alone. A launch or build error raises; nothing switches
-route on a failure.
+The forward has three kernels and the backward's dQ and dK/dV three
+each; one rule, ``fwd_route`` (``bwd_route`` is the same function), picks
+from the dtype and the head dims alone: bf16 with D and Dv multiples of 16
+up to 256 runs on the bf16 tensor cores ("tc": ``flash_fwd_sm90.cu``,
+wgmma and TMA; ``flash_bwd_sm90.cu``); f32 with D and Dv multiples of 8 up
+to 256 on the tensor cores in split TF32 ("tf32": ``flash_fwd_tf32.cu``,
+``flash_bwd_tf32.cu``; each f32 operand as a tf32 hi + lo pair, three
+products for one: f32 accuracy); everything else on the CUDA cores
+("simt": ``flash_attention.cu``, ``flash_attention_bwd.cu``, which also
+holds delta on every route). The decode splits each (row, kv head)'s live
+keys over a cluster of ``DECODE_CLUSTER`` blocks
+(``flash_decode_sm90.cu``); ``decode_geometry`` and ``delta_geometry``
+size the decode's shared ring and delta's blocks from the shapes alone.
+A launch or build error raises; nothing switches route on a failure.
 
 ``BQ``, ``BK`` and ``DECODE_BLOCKS`` are the reference's tile sizes. The
 port keeps them for its gates, so it takes a kernel exactly where the
 reference does; the CUDA kernels tile by 64 inside (the SIMT and split-TF32
-backward by 32 above head dim 128, ``bwd_rows``).
+backward by 32 above head dim 128, ``bwd_rows``; the split-TF32 forward's
+key tiles likewise).
 """
 from __future__ import annotations
 
@@ -70,34 +69,32 @@ SMEM_LIMIT = 232_448
 
 
 def fwd_route(dtype, D: int, Dv: int) -> str:
-    """Which forward kernel a CUDA call runs: "tc" (``flash_fwd_sm90.cu``,
-    bf16 tensor cores) for bf16 with D and Dv multiples of 16 in [16, 256],
-    else "simt" (``flash_attention.cu``, f32 on the CUDA cores)."""
+    """Which kernels a CUDA call runs, forward and backward (dQ, dK/dV),
+    from the dtype and the head dims alone: "tc" (``flash_fwd_sm90.cu``,
+    ``flash_bwd_sm90.cu``: bf16 tensor cores) for bf16 with D and Dv
+    multiples of 16 in [16, 256]; "tf32" (``flash_fwd_tf32.cu``,
+    ``flash_bwd_tf32.cu``: f32 on the tensor cores in split TF32) for f32
+    with D and Dv multiples of 8 in [8, 256]; else "simt"
+    (``flash_attention.cu``, ``flash_attention_bwd.cu``: f32 arithmetic on
+    the CUDA cores)."""
     if dtype == torch.bfloat16 and all(
             d % 16 == 0 and 16 <= d <= MAX_HEAD_DIM for d in (D, Dv)):
         return "tc"
-    return "simt"
-
-
-def bwd_route(dtype, D: int, Dv: int) -> str:
-    """Which dQ and dK/dV kernels a CUDA call runs, from the dtype and the
-    head dims alone: "tc" (``flash_bwd_sm90.cu``, bf16 tensor cores) where
-    ``fwd_route`` says "tc" (bf16, D and Dv multiples of 16 in [16, 256]);
-    "tf32" (``flash_bwd_tf32.cu``, f32 on the tensor cores in split TF32)
-    for f32 with D and Dv multiples of 8 in [8, 256]; else "simt"
-    (``flash_attention_bwd.cu``, f32 arithmetic on the CUDA cores)."""
-    if fwd_route(dtype, D, Dv) == "tc":
-        return "tc"
     if dtype == torch.float32 and all(
-            d % 8 == 0 and 8 <= d <= BWD_MAX_HEAD_DIM for d in (D, Dv)):
+            d % 8 == 0 and 8 <= d <= MAX_HEAD_DIM for d in (D, Dv)):
         return "tf32"
     return "simt"
 
 
+#: the backward's dQ and dK/dV take the forward's route: one rule
+bwd_route = fwd_route
+
+
 def bwd_rows(D: int, Dv: int) -> int:
-    """Row tile of the SIMT and split-TF32 dQ and dK/dV kernels: 64 up to
-    head dim 128, 32 above, so that their shared-memory tiles fit
-    (``bwd_smem``, ``bwd_tf32_smem``)."""
+    """Row tile of the SIMT and split-TF32 dQ and dK/dV kernels, and the
+    key tile of the split-TF32 forward: 64 up to head dim 128, 32 above,
+    so that their shared-memory tiles fit (``bwd_smem``, ``bwd_tf32_smem``,
+    ``fwd_tf32_smem``)."""
     return 64 if max(D, Dv) <= 128 else 32
 
 
@@ -132,15 +129,28 @@ def bwd_tc_smem(kernel: str, D: int, Dv: int) -> int:
 #: floats of padding a shared row of the split-TF32 kernels, and their ring
 #: depth
 TF32_PAD, TF32_STAGES = 4, 2
+#: query rows of a split-TF32 forward block
+TF32_FWD_ROWS = 64
 
 
-def bwd_tf32_width(D: int, Dv: int) -> int:
+def tf32_width(D: int, Dv: int) -> int:
     """The width W both head dims are padded to in the split-TF32 kernels
-    (``padded_blocks`` of ``flash_bwd_tf32.cu``, times 8): 32, 64, 96 or
-    128 on 64-row tiles, 192 or 256 on 32-row tiles."""
+    (``tf32_blocks`` of ``tf32.cuh``, times 8): 32, 64, 96 or 128 up to
+    head dim 128 (64-row tiles), 192 or 256 above (32-row tiles)."""
     n = -(-max(D, Dv) // 8)
-    sizes = (4, 8, 12, 16) if bwd_rows(D, Dv) == 64 else (24, 32)
-    return 8 * next(b for b in sizes if n <= b)
+    return 8 * next(b for b in (4, 8, 12, 16, 24, 32) if n <= b)
+
+
+def fwd_tf32_smem(D: int, Dv: int) -> int:
+    """Dynamic shared memory of a split-TF32 forward block, bytes:
+    ``fwd_smem`` of ``flash_fwd_tf32.cu``. The 64-row q tile and two ring
+    stages of a K and a V tile of ``bwd_rows`` keys, rows of W+4 f32
+    (``tf32_width``), and the int32 segment ids of the q tile and of each
+    stage."""
+    keys = bwd_rows(D, Dv)
+    rows = TF32_FWD_ROWS + TF32_STAGES * 2 * keys
+    return 4 * rows * (tf32_width(D, Dv) + TF32_PAD) + 4 * (
+        TF32_FWD_ROWS + TF32_STAGES * keys)
 
 
 def bwd_tf32_smem(kernel: str, D: int, Dv: int) -> int:
@@ -148,11 +158,11 @@ def bwd_tf32_smem(kernel: str, D: int, Dv: int) -> int:
     block, bytes: ``dq_tf32_smem`` / ``dkv_tf32_smem`` of
     ``flash_bwd_tf32.cu`` at the row tile ``bwd_rows`` gives. Three tiles'
     worth (the block's own and two ring stages) of two (rows, W+4) f32
-    tiles (``bwd_tf32_width``), lse and delta rows (once for dQ, a stage
+    tiles (``tf32_width``), lse and delta rows (once for dQ, a stage
     each for dK/dV) and three tiles' int32 segment ids."""
     rows = bwd_rows(D, Dv)
     lse_rows = {"dq": 1, "dkv": TF32_STAGES}[kernel]
-    ld = bwd_tf32_width(D, Dv) + TF32_PAD
+    ld = tf32_width(D, Dv) + TF32_PAD
     floats = (1 + TF32_STAGES) * 2 * rows * ld + lse_rows * 2 * rows
     return 4 * floats + 4 * (1 + TF32_STAGES) * rows
 
@@ -439,6 +449,16 @@ def _tc_bwd_lib() -> ctypes.CDLL:
     return lib
 
 
+def _tf32_fwd_lib() -> ctypes.CDLL:
+    lib = _build.load("flash_fwd_tf32")
+    if lib.tri_flash_fwd_tf32.argtypes is None:    # first use: the ABI
+        lib.tri_flash_fwd_tf32.argtypes = [_P] * 6 + [_I] * 9 + [_F, _P]
+        lib.tri_flash_fwd_tf32.restype = _I
+        lib.tri_flash_fwd_tf32_smem.argtypes = [_I] * 2
+        lib.tri_flash_fwd_tf32_smem.restype = ctypes.c_long
+    return lib
+
+
 def _tf32_bwd_lib() -> ctypes.CDLL:
     lib = _build.load("flash_bwd_tf32")
     if lib.tri_flash_bwd_dq_tf32.argtypes is None:     # first use: the ABI
@@ -525,14 +545,14 @@ def flash_attention_cuda(q, k, v, segments=None, *, causal: bool = True,
             float(scale))
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
+        ins = (q.data_ptr(), k.data_ptr(), v.data_ptr(), seg_p,
+               o.data_ptr(), lse_p)
         if route == "tc":
-            rc = _tc_lib().tri_flash_fwd_tc(
-                q.data_ptr(), k.data_ptr(), v.data_ptr(), seg_p,
-                o.data_ptr(), lse_p, *dims, stream)
+            rc = _tc_lib().tri_flash_fwd_tc(*ins, *dims, stream)
         else:
-            rc = _lib().tri_flash_fwd(
-                q.data_ptr(), k.data_ptr(), v.data_ptr(), seg_p,
-                o.data_ptr(), lse_p, _DTYPE_CODE[q.dtype], *dims, stream)
+            fn = (_tf32_fwd_lib().tri_flash_fwd_tf32 if route == "tf32"
+                  else _lib().tri_flash_fwd)
+            rc = fn(*ins, _DTYPE_CODE[q.dtype], *dims, stream)
     _raise_on(rc, f"flash_attention ({route})")
     return (o, lse) if with_lse else o
 

@@ -8,11 +8,11 @@ falls back on a missing card. Each wrapper counts its kernel launches in
 launched), so a run can show that the main path went through the kernels.
 ``qdq_cast`` also counts by form (``qdq_cast_two_pass``,
 ``qdq_cast_one_pass``: ``qdq_cast.form``) beside its total. The flash
-forward counts by route (``flash_attention_tc``,
+forward counts by route (``flash_attention_tc``, ``flash_attention_tf32``,
 ``flash_attention_simt``: ``flash_attention.fwd_route``) beside its total,
 and so do the backward's dQ and dK/dV (``flash_attention_bwd_dq_tc`` /
 ``_tf32`` / ``_simt``, ``flash_attention_bwd_dkv_tc`` / ``_tf32`` /
-``_simt``: ``flash_attention.bwd_route``).
+``_simt``: ``flash_attention.bwd_route``, the same rule).
 
 The attention gates are the reference's, constants included (``BQ = BK =
 256``, ``DECODE_BLOCKS``): where a gate fails, the call runs the chunked or
@@ -44,7 +44,8 @@ from repro_torch.kernels import qdq_cast as _qc
 LAUNCHES = {"fused_stats": 0, "fused_apply": 0, "qdq_cast": 0,
             "qdq_cast_two_pass": 0, "qdq_cast_one_pass": 0,
             "grad_stats": 0, "flash_attention": 0,
-            "flash_attention_tc": 0, "flash_attention_simt": 0,
+            "flash_attention_tc": 0, "flash_attention_tf32": 0,
+            "flash_attention_simt": 0,
             "flash_attention_bwd_delta": 0,
             "flash_attention_bwd_dq": 0, "flash_attention_bwd_dkv": 0,
             "flash_attention_bwd_dq_tc": 0, "flash_attention_bwd_dq_tf32": 0,

@@ -10,7 +10,8 @@ grad_stats' absmax bitwise, its sums within 2^-20 of the sum of the
 terms' magnitudes of an f64 sum, non-finite inputs in the same class, two
 launches bitwise equal;
 the attention kernels, forward and backward (bf16 on the tensor-core
-routes; f32 on the SIMT forward and the split-TF32 backward), within
+routes; f32 on the split-TF32 forward and backward; the SIMT kernels
+through their raw entries), within
 ``flash_attention.tolerance`` (in f32 1e-5 of the tensor's largest
 magnitude plus 1e-5 relative, in bf16 one bf16 ulp more); the
 differentiable ``ops.flash_attention`` within 1e-5 of each gradient's
@@ -304,12 +305,14 @@ def test_flash_function_gradient_matches_plain_autograd(card, variant):
 WIDE = [(128, 128), (192, 192), (256, 256), (192, 128)]
 
 
-@pytest.mark.parametrize("dtype,route", [(torch.bfloat16, "tc"),
-                                         (torch.float32, "simt")])
+# the f32 case keeps the id it had when f32 took the SIMT route
+@pytest.mark.parametrize("dtype,route", [
+    (torch.bfloat16, "tc"),
+    pytest.param(torch.float32, "tf32", id="dtype1-simt")])
 @pytest.mark.parametrize("dims", WIDE, ids=lambda d: f"{d[0]}-{d[1]}")
 def test_flash_forward_wide_heads_both_routes(card, dims, dtype, route):
-    """Both forward kernels at head dims 128-256 (bf16 takes the
-    tensor-core kernel, f32 the SIMT kernel; GQA rep 2; causal and
+    """Both tensor-core forward kernels at head dims 128-256 (bf16 takes
+    the bf16 kernel, f32 the split-TF32 kernel; GQA rep 2; causal and
     windowed) against the plain version."""
     g = torch.Generator(device=card).manual_seed(5)
     (D, Dv), (B, S, H, K) = dims, (2, 256, 4, 2)
@@ -398,10 +401,10 @@ def test_flash_backward_counts_launches_by_route(card):
 def test_flash_forward_counts_launches_by_route(card):
     """``ops.flash_attention`` counts each forward launch in its total and
     under its route: bf16 at head dim 64 the tensor-core kernel, f32 the
-    SIMT kernel."""
+    split-TF32 kernel."""
     g = torch.Generator(device=card).manual_seed(7)
     x = torch.randn((1, 256, 2, 64), generator=g, device=card)
-    for dtype, route in ((torch.bfloat16, "tc"), (torch.float32, "simt")):
+    for dtype, route in ((torch.bfloat16, "tc"), (torch.float32, "tf32")):
         before = dict(ops.LAUNCHES)
         ops.flash_attention(x.to(dtype), x.to(dtype), x.to(dtype))
         grew = {k: ops.LAUNCHES[k] - before[k] for k in before
@@ -441,3 +444,29 @@ def test_flash_backward_simt_kernels_through_their_raw_entry(card, dims,
         assert _close(dq, fa.flash_bwd_dq_ref(q, k, v, do, lse, delta, **kw))
         want = fa.flash_bwd_dkv_ref(q, k, v, do, lse, delta, **kw)
         assert _close(dk, want[0]) and _close(dv, want[1])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_forward_simt_kernel_through_its_raw_entry(card, dtype):
+    """The SIMT forward through its raw entry (``tri_flash_fwd``), whatever
+    ``fwd_route`` picks (f32 and bf16 at head dim 64 take the tensor-core
+    routes): o and the LSE against the plain version, causal and windowed,
+    GQA rep 3."""
+    g = torch.Generator(device=card).manual_seed(14)
+    B, S, H, K, D = 2, 256, 6, 2, 64
+    q, k, v = (torch.randn(s, generator=g, device=card).to(dtype)
+               for s in ((B, S, H, D), (B, S, K, D), (B, S, K, D)))
+    lib, stream = fa._lib(), torch.cuda.current_stream().cuda_stream
+    for window in (0, 100):
+        o = torch.empty_like(q)
+        lse = torch.empty((B, H, S), device=card)
+        assert lib.tri_flash_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                                 None, o.data_ptr(), lse.data_ptr(),
+                                 fa._DTYPE_CODE[dtype], B, S, H, K, D, D, 1,
+                                 window, D ** -0.5, stream) == 0
+        torch.cuda.synchronize()
+        o_r, lse_r = fa.flash_attention_ref(q, k, v, with_lse=True,
+                                            window=window)
+        assert _close(o, o_r)
+        assert float((lse - lse_r).abs().max()) <= 1e-5 * (
+            1 + float(lse_r.abs().max()))

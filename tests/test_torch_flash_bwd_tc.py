@@ -3,10 +3,11 @@ the CPU: the choices its wrappers make from shapes alone, and its numerics.
 
 ``bwd_route`` picks the dQ and dK/dV kernels from the dtype and the head
 dims alone: bf16 with D and Dv multiples of 16 in [16, 256] takes the
-tensor-core kernels (``fwd_route``'s "tc"), f32 with D and Dv multiples of
-8 in [8, 256] the split-TF32 kernels ("tf32", whose forward is the SIMT
-kernel), everything else the SIMT kernels. Every route's wrapper refuses a
-CPU tensor, and a head dim above 256 before it looks at the device.
+tensor-core kernels, f32 with D and Dv multiples of 8 in [8, 256] the
+split-TF32 kernels ("tf32"), everything else the SIMT kernels: the
+forward's rule (``bwd_route`` is ``fwd_route``). Every route's wrapper
+refuses a CPU tensor, and a head dim above 256 before it looks at the
+device.
 ``bwd_tc_smem`` mirrors the kernels' shared memory and fits a block's
 232,448 bytes at every head dim they take.
 
@@ -53,17 +54,11 @@ LOG2E = 1.4426950408889634
 ])
 def test_bwd_route_from_dtype_and_head_dims(dtype, D, Dv, route):
     """bf16 with both head dims multiples of 16 in [16, 256] takes the
-    tensor-core dQ and dK/dV, by the forward's rule; f32 with both
-    multiples of 8 in [8, 256] the split-TF32 kernels, while its forward
-    stays on the SIMT kernel; every other dtype or head dim the SIMT
-    kernels, as the forward."""
+    tensor-core dQ and dK/dV; f32 with both multiples of 8 in [8, 256] the
+    split-TF32 kernels; every other dtype or head dim the SIMT kernels.
+    The backward's route is the forward's at every case (one rule)."""
     assert fa.bwd_route(dtype, D, Dv) == route
-    fwd = fa.fwd_route(dtype, D, Dv)
-    if dtype == BF16:
-        assert route == fwd
-    else:
-        assert fwd == "simt" and route == ("tf32" if dtype == F32 else
-                                           "simt")
+    assert fa.fwd_route(dtype, D, Dv) == route
 
 
 def _bwd_args(dtype, D, Dv, B=1, S=64, H=2, K=1):

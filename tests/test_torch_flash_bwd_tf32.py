@@ -5,7 +5,8 @@ alone, and its numerics.
 ``bwd_route`` sends f32 calls with D and Dv multiples of 8 in [8, 256] to
 the split-TF32 dQ and dK/dV kernels ("tf32"), bf16 calls at the forward's
 tensor-core head dims to the bf16 tensor-core kernels ("tc"), and every
-other call to the SIMT kernels. ``bwd_tf32_smem`` mirrors the kernels'
+other call to the SIMT kernels, as ``fwd_route`` does for the forward
+(one rule). ``bwd_tf32_smem`` mirrors the kernels'
 shared memory and fits a block's 232,448 bytes at every head dim the route
 takes.
 
@@ -58,12 +59,12 @@ def _rule(dtype, D, Dv):
 def test_bwd_route_at_every_head_dim(dtype):
     """Every (D, Dv) in [8, 272]^2: f32 at multiples of 8 up to 256 takes
     the split-TF32 kernels, bf16 at multiples of 16 the bf16 tensor-core
-    kernels, the rest the SIMT kernels; the forward keeps its own rule."""
+    kernels, the rest the SIMT kernels; the forward takes the same route
+    (one rule)."""
     dims = range(8, 273)
     got = {(D, Dv): fa.bwd_route(dtype, D, Dv) for D in dims for Dv in dims}
     assert got == {(D, Dv): _rule(dtype, D, Dv) for D in dims for Dv in dims}
-    assert all(fa.fwd_route(dtype, D, Dv) == ("simt" if r == "tf32" else r)
-               for (D, Dv), r in got.items())
+    assert all(fa.fwd_route(dtype, D, Dv) == r for (D, Dv), r in got.items())
 
 
 # ---------------------------------------------------------- shared memory ---

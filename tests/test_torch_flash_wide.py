@@ -17,10 +17,10 @@ product in one XLA dot, the port in one einsum over the full (S, S)
 matrix, in another order.
 
 Then, on shapes alone: ``fwd_route`` (which forward kernel a CUDA call
-runs, from the dtype and the head dims), and the backward's row tile
-(``bwd_rows``) with its shared memory (``bwd_smem``, the formula of
-``flash_attention_bwd.cu``), which fits a block's 232,448 bytes at every
-head dim pair up to 256.
+runs, from the dtype and the head dims: "tc", "tf32" or "simt"), and the
+backward's row tile (``bwd_rows``) with its shared memory (``bwd_smem``,
+the formula of ``flash_attention_bwd.cu``), which fits a block's 232,448
+bytes at every head dim pair up to 256.
 """
 import pytest
 
@@ -89,24 +89,30 @@ def test_plain_backward_matches_reference_pallas_wide(dims, kw):
 BF16, F32, F16 = torch.bfloat16, torch.float32, torch.float16
 
 
+# the f32 cases keep the ids they had when f32 took the SIMT route
 @pytest.mark.parametrize("dtype,D,Dv,route", [
     (BF16, 64, 64, "tc"), (BF16, 16, 16, "tc"), (BF16, 128, 128, "tc"),
     (BF16, 192, 192, "tc"), (BF16, 256, 256, "tc"), (BF16, 192, 128, "tc"),
     (BF16, 32, 48, "tc"), (BF16, 8, 8, "simt"), (BF16, 24, 64, "simt"),
-    (BF16, 64, 40, "simt"), (BF16, 272, 64, "simt"), (F32, 64, 64, "simt"),
-    (F32, 256, 256, "simt"), (F16, 64, 64, "simt"),
+    (BF16, 64, 40, "simt"), (BF16, 272, 64, "simt"),
+    pytest.param(F32, 64, 64, "tf32", id="dtype11-64-64-simt"),
+    pytest.param(F32, 256, 256, "tf32", id="dtype12-256-256-simt"),
+    (F16, 64, 64, "simt"),
 ])
 def test_fwd_route_from_dtype_and_head_dims(dtype, D, Dv, route):
-    """bf16 with both head dims multiples of 16 in [16, 256] takes the
-    tensor-core kernel; every other dtype or head dim the SIMT kernel."""
+    """Three routes: bf16 with both head dims multiples of 16 in [16, 256]
+    takes the bf16 tensor-core kernel ("tc"); f32 with both multiples of 8
+    in [8, 256] the split-TF32 tensor-core kernel ("tf32"); every other
+    dtype or head dim the SIMT kernel ("simt")."""
     assert fa.fwd_route(dtype, D, Dv) == route
 
 
 @pytest.mark.parametrize("dtype,D", [(BF16, 64), (BF16, 24), (F32, 64)])
 def test_forward_cuda_wrapper_refuses_cpu_tensors_on_either_route(dtype, D):
-    """A CPU tensor raises at the device check on either route (bf16 at 64:
-    the tensor-core kernel; bf16 at 24 and f32: the SIMT kernel); no route
-    runs a plain version in the kernel's place."""
+    """A CPU tensor raises at the device check on every route (bf16 at 64:
+    the bf16 tensor-core kernel; bf16 at 24: the SIMT kernel; f32 at 64:
+    the split-TF32 kernel); no route runs a plain version in the kernel's
+    place."""
     x = torch.zeros((1, 64, 2, D), dtype=dtype)
     with pytest.raises(ValueError, match="CUDA tensor"):
         fa.flash_attention_cuda(x, x, x)
