@@ -146,7 +146,33 @@ Phases (any failure raises and the script exits non-zero):
      counted around it). For each model: the bytes of one generation, the
      host stall of ``save()``, the background write and ``maybe_restore``
      on the card, printed beside the card's name and power limit. The
-     checkpoints go to a temporary directory that the phase removes.
+     checkpoints go to a temporary directory that the phase removes;
+  9. faults and recovery (``repro_torch.resilience``, the ``Trainer``'s
+     recovery loop): fused_stats and fused_apply on a burst step's input
+     at the ResNet-18 slab (a gradient of +-inf and NaN only, the finite
+     flag 0), bitwise against the plain versions; the reference soak's
+     trainer plan (``fault_plan``) through the harness's Tri-Accel
+     ResNet-18 trainer at rungs (16, 32) from 32, 24 steps, a generation
+     every 4, the watchdog on (3 non-finite steps, 2 rollbacks): an
+     injected OOM at step 3 steps rung 32 down, a burst at steps 9-11 is
+     skipped with the master and momentum slabs and BatchNorm state
+     bitwise and rolled back with ``lr_demote`` 0.5 and a finite loss
+     scale, SIGTERM at step 21 exits with 143 and its generation is torn;
+     a restart falls back past it ("failed verification") and ends at
+     step 24 with the demotion kept; fused_stats and fused_apply launch
+     once for each dispatch that reached the step; the same plan on the
+     CPU must give the same ``oom_events``, ``rollback_events``, fault
+     log and restart. Then a real OOM: the allocator capped
+     (``set_per_process_memory_fraction``) halfway between the peaks that
+     rungs 32 and 64 measure, a trainer at rungs (32, 64) from 64 with no
+     plan catches the allocator's ``torch.OutOfMemoryError``, poisons 64
+     and re-runs the batch at 32; its masters after 6 steps equal two
+     fault-free oracles' at 32 (bitwise where the oracles are, else within
+     twice their spread). Printed beside the card's name and power limit:
+     a rollback's cost (the writer's wait, the restore, the replayed
+     steps), the injected and the real OOM step-down, and the step time
+     at rung 32 with the watchdog off and on (medians of 10-step blocks
+     in turns).
 
 A kernel that runs on several main paths at different shapes
 (fused_stats and fused_apply: ResNet-18, EfficientNet-B0 and LM training;
@@ -177,9 +203,10 @@ split-TF32 kernels of f32 callers (no main path launches them; their
 with the TF32 bound (``f32_fma_bound_ms`` beside it);
 ``flash_attention_bwd_dq_simt`` and ``flash_attention_bwd_dkv_simt`` the
 SIMT kernels (bf16 head dims the tensor-core kernels refuse), timed in
-f32 as before. ``qdq_cast`` is the two-pass
-form the serving path launches, ``qdq_cast_one_pass`` the one-pass form
-the LM path's tier-0 set launches, both timed over the 11 leaves, f32 in
+f32 as before. The ``fused_stats`` and ``fused_apply`` rows carry
+``fault_path_launches``, their launches on phase 9's fault plan path.
+``qdq_cast`` is the two-pass form the serving path launches,
+``qdq_cast_one_pass`` the one-pass form the LM path's tier-0 set launches, both timed over the 11 leaves, f32 in
 and bf16 out as those paths cast (``f32_out_*``: the same with f32 out).
 The ``flash_decode``, ``flash_attention_bwd_delta``, both ``qdq_cast``,
 every ``fused_stats`` and ``fused_apply`` and the
@@ -199,6 +226,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import copy
+import dataclasses
 import gc
 import json
 import math
@@ -3267,6 +3295,383 @@ def checkpoint_lm() -> dict:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# ------------------------------------- phase 9: faults and recovery ---
+#: the fault plan's ResNet-18 run (the reference soak's plan at the
+#: harness's rung 32): its steps, checkpoint cadence and rungs; the burst,
+#: SIGTERM and corruption steps
+FAULT_STEPS, FAULT_CKPT_EVERY, FAULT_RUNGS = 24, 4, (16, 32)
+FAULT_OOM_AT, FAULT_BURST_AT, FAULT_SIGTERM_AT = 3, 9, 21
+FAULT_RECOVERY = dict(watchdog=True, max_nonfinite=3, max_rollbacks=2)
+#: the real OOM: the rungs (the larger one made not to fit) and the steps
+#: of the recovering trainer and of each fault-free oracle
+OOM_RUNGS, OOM_STEPS = (32, 64), 6
+#: the watchdog's cost: blocks of steps at rung 32, in turns off/on
+WATCH_BLOCK, WATCH_TURNS = 10, 3
+
+
+def fault_plan():
+    """The reference soak's trainer plan (``repro.resilience.soak``): an
+    unlimited OOM on the big rung from step 3, a burst of ``max_nonfinite``
+    steps from step 9 (the gpu ladder caps the injected inf at 2^24 after
+    each step, so each burst step re-fires), SIGTERM at step 21 and a torn
+    leaf in the checkpoint that SIGTERM writes."""
+    from repro_torch.resilience import Fault, FaultPlan
+    return FaultPlan([
+        Fault("train.step_oom", step=FAULT_OOM_AT, rung=FAULT_RUNGS[-1],
+              repeats=None),
+        Fault("train.nonfinite", step=FAULT_BURST_AT,
+              repeats=FAULT_RECOVERY["max_nonfinite"]),
+        Fault("train.sigterm", step=FAULT_SIGTERM_AT, repeats=1),
+        Fault("ckpt.corrupt", step=FAULT_SIGTERM_AT, repeats=1,
+              kind="truncate_leaf")], seed=0)
+
+
+def fault_trainer(ckpt_dir=None, plan=None, device="cuda",
+                  rungs=FAULT_RUNGS, steps=FAULT_STEPS, **over):
+    """The paper harness's Tri-Accel ResNet-18 trainer (``make_trainer``
+    at rung 32: gpu ladder, sgdm, fisher, 11,173,962 parameters) at
+    ``rungs``, starting at the largest, with a checkpoint every
+    ``FAULT_CKPT_EVERY`` steps into ``ckpt_dir``; ``over`` replaces
+    further ``TrainerConfig`` fields."""
+    from repro_torch.train.paper_harness import make_trainer
+    from repro_torch.train.trainer import Trainer
+    base, task, _, tac = make_trainer("triaccel", "resnet18", steps=steps,
+                                      batch0=32, device=device)
+    tcfg = dataclasses.replace(base.tcfg, rungs=rungs, start_rung=rungs[-1],
+                               ckpt_dir=ckpt_dir,
+                               ckpt_every=FAULT_CKPT_EVERY, **over)
+    del base
+    gc.collect()
+    tr = Trainer(task, tac, tcfg, device=device, fault_plan=plan)
+    # the harness's memory model admits 32 as its largest start; start at
+    # the largest rung as its fixed-rung baselines set theirs
+    tr.scaler.idx = len(rungs) - 1
+    return tr
+
+
+def check_burst_kernels(view, dev) -> None:
+    """fused_stats and fused_apply on what a burst step gives them at the
+    ResNet-18 slab: a gradient of +-inf and NaN only (the loss scaled by
+    inf, 0 x inf where the gradient was zero) and the finite flag 0; both
+    bitwise against the plain versions, every element counted non-finite,
+    the master and momentum handed back unchanged."""
+    from repro_torch.kernels import fused_update as fu
+    from repro_torch.kernels import ops
+    rows, L = view.rows, view.num_layers
+    g, p, m, _, _, lr, _, qs = _apply_inputs(rows, L, dev, False, 5)
+    g[:, ::9] = 0.0
+    g = g * float("inf")
+    rl = view.row_blocks(dev)
+    got = ops.fused_stats(g, rl, L)
+    want = fu.fused_stats_ref(g, rl, L)
+    torch.cuda.synchronize()
+    for n, a, b in zip(("sum", "sum_sq", "absmax", "nonfinite"), got, want):
+        check(same(a, b), f"burst fused_stats {n}: {a} vs {b}")
+    check(float(got[3].sum()) == rows * 512,
+          f"burst: {float(got[3].sum())} of {rows * 512} counted non-finite")
+    code = torch.ones(rl.shape, dtype=torch.int32, device=dev)
+    scal = torch.tensor([0.5, 0.0, 1.0, 1.0, 10.0], device=dev)
+    kw = dict(spec=fu.OptSpec("sgdm", momentum=0.9, weight_decay=5e-4),
+              ladder="gpu", cp_dtype=torch.float32, num_layers=L, sr=False)
+    args = (g, p, m, None, scal, rl, lr, code, qs)
+    _apply_pair(ops, fu, args, kw)
+    p2, m2 = ops.fused_apply(*args, **kw)[:2]
+    check(torch.equal(_bits(p2), _bits(p)) and torch.equal(_bits(m2),
+                                                           _bits(m)),
+          "burst: fused_apply keeps the master and momentum bitwise")
+    log(f"burst kernels at {rows}x512, L={L}: fused_stats counts all "
+        f"{rows * 512} elements non-finite, fused_apply with finite=0 keeps "
+        "the master and momentum; both bitwise against the plain versions")
+
+
+def _state_bits(tr, state=None):
+    """Bit copies of a trainer's master and momentum slabs and aux state
+    (``state`` in place of the trainer's own)."""
+    from repro_torch import tree as tu
+    st = tr.state if state is None else state
+    return [_bits(x).clone() for x in
+            tu.leaves((st.params, st.opt_state, st.aux_state))]
+
+
+def fault_soak(device) -> dict:
+    """``fault_plan()`` through ``fault_trainer`` on ``device`` with the
+    watchdog on (``FAULT_RECOVERY``), then the restart: exit 143 at the
+    SIGTERM step, the OOM stepping rung 32 down to 16, each burst step
+    skipped with the master and momentum slabs and the BatchNorm state
+    bitwise, one rollback with ``lr_demote`` 0.5 and a finite loss scale;
+    the restart falls back past the torn generation and ends at
+    ``FAULT_STEPS`` with the demotion kept. fused_stats and fused_apply
+    launch once for each dispatch that reached the step. -> the trails,
+    and the card's costs (rollback, OOM step-down)."""
+    import warnings
+    from repro_torch.kernels import ops
+    from repro_torch.resilience import RecoveryConfig
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_faults_"))
+    try:
+        plan = fault_plan()
+        tr = fault_trainer(str(tmp), plan, device,
+                           recovery=RecoveryConfig(**FAULT_RECOVERY))
+        dispatch, rollback = tr._dispatch, tr._rollback
+        calls, entered, skipped, spans, logged = [], [], [], {}, [0]
+
+        def counting(step_fn):        # the dispatches that reach the step
+            def counted(state, batch):
+                calls.append(1)
+                return step_fn(state, batch)
+            return counted
+
+        def watched(step):
+            _sync(device)
+            entered.append((step, time.perf_counter()))
+            # a firing logged since the last dispatch is this step's
+            burst = len(plan.log) > logged[0] and plan.log[-1][:2] == (
+                "train.nonfinite", step)
+            logged[0] = len(plan.log)
+            before = _state_bits(tr) if burst else None
+            t0 = time.perf_counter()
+            out = dispatch(step)
+            _sync(device)
+            spans.setdefault(step, []).append(
+                (time.perf_counter() - t0) * 1e3)
+            if burst:
+                check(not bool(out[1]["grads_finite"]),
+                      f"burst step {step} flagged non-finite")
+                check(all(torch.equal(a, b) for a, b in zip(
+                    _state_bits(tr, out[0]), before)),
+                      f"burst step {step} keeps the slabs and BN state")
+                skipped.append(step)
+            return out
+
+        def timed_rollback(step):
+            _sync(device)
+            t0 = time.perf_counter()
+            tr.ckpt.wait()       # the rollback's first act, timed apart
+            t1 = time.perf_counter()
+            restored = rollback(step)
+            _sync(device)
+            spans["rollback"] = (t0, t1, time.perf_counter())
+            return restored
+        tr._step_fn, tr._dispatch, tr._rollback = (
+            counting(tr._step_fn), watched, timed_rollback)
+        ops.reset_launches()
+        code = None
+        with signals_kept():
+            tr.install_preemption_handler()
+            try:
+                tr.run()
+            except SystemExit as e:
+                code = e.code
+        ctl = tr.state.control
+        first = dict(code=code, oom_events=list(tr.oom_events),
+                     rollback_events=list(tr.rollback_events),
+                     log=list(plan.log), skipped=skipped,
+                     lr_demote=float(ctl.lr_demote),
+                     loss_scale=float(ctl.loss_scale),
+                     rung=tr.scaler.microbatch)
+        check(code == 143, f"exit {code} at the SIGTERM step")
+        check(first["oom_events"] == [(FAULT_OOM_AT, FAULT_RUNGS[-1])]
+              and first["rung"] == FAULT_RUNGS[0],
+              f"OOM step-down {first['oom_events']}, rung {first['rung']}")
+        burst = list(range(FAULT_BURST_AT, FAULT_BURST_AT
+                           + FAULT_RECOVERY["max_nonfinite"]))
+        check(skipped == burst, f"skipped steps {skipped}")
+        check(len(tr.rollback_events) == 1, f"{tr.rollback_events}")
+        diverged, restored = tr.rollback_events[0]
+        check(first["lr_demote"] == 0.5
+              and math.isfinite(first["loss_scale"]),
+              f"demotion: lr_demote {first['lr_demote']}, loss scale "
+              f"{first['loss_scale']}")
+        first_calls = len(calls)
+        # the restart: the same trainer without the plan
+        tr2 = fault_trainer(str(tmp), None, device)
+        tr2._step_fn = counting(tr2._step_fn)
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            back = tr2.maybe_restore()
+        fell_back = any("failed verification" in str(c.message)
+                        for c in caught)
+        tr2.run(FAULT_STEPS - back)
+        _sync(device)
+        launches = dict(ops.LAUNCHES)
+        out = dict(first, restored=back, fell_back=fell_back,
+                   final_step=int(tr2.state.control.step),
+                   final_lr_demote=float(tr2.state.control.lr_demote))
+        check(fell_back and back == FAULT_SIGTERM_AT,
+              f"restart restored step {back}, fell back {fell_back}")
+        check(out["final_step"] == FAULT_STEPS
+              and out["final_lr_demote"] < 1.0,
+              f"restart ends at {out['final_step']}, lr_demote "
+              f"{out['final_lr_demote']}")
+        want = FAULT_SIGTERM_AT + (diverged - restored + 1) \
+            + FAULT_STEPS - back
+        check(len(calls) == want, f"{len(calls)} dispatches reached the "
+              f"step, {want} expected")
+        on_card = len(calls) if device == "cuda" else 0  # CPU: plain
+        check(launches["fused_stats"] == launches["fused_apply"] == on_card,
+              f"launches {launches}, {len(calls)} dispatches reached the "
+              "step")
+        out.update(dispatches=len(calls), first_dispatches=first_calls,
+                   launches={k: v for k, v in launches.items() if v})
+        if device == "cuda":
+            t0, t1, t2 = spans["rollback"]
+            resumed = [t for s, t in entered if s == diverged + 1 and t > t2]
+            out["writer_ms"] = (t1 - t0) * 1e3
+            out["restore_ms"] = (t2 - t1) * 1e3
+            out["rollback_ms"] = (resumed[0] - t0) * 1e3
+            out["replayed"] = diverged - restored + 1
+            out["oom_step_ms"] = spans[FAULT_OOM_AT][0]
+            out["step_ms"] = statistics.median(
+                v[0] for s, v in spans.items()
+                if isinstance(s, int) and s > FAULT_OOM_AT + 1
+                and s not in burst)
+        return out
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def real_oom() -> dict:
+    """Recovery from the allocator's own ``torch.OutOfMemoryError``: two
+    fault-free oracles at rung 32 and a probe at rung 64 (one at a time)
+    measure each rung's peak (``Trainer.measured_bytes``); the allocator
+    is capped (``set_per_process_memory_fraction``) halfway between them,
+    and a trainer at rungs (32, 64) starting at 64, with no fault plan,
+    must catch the OOM of its first step, poison rung 64 and re-run the
+    batch at 32, then take ``OOM_STEPS`` steps. Its master slab equals the
+    oracles' bitwise where the two oracles are bitwise equal, else within
+    twice their spread (cuDNN's convolution backward is not deterministic
+    at batch 32). The cap is lifted in ``finally``. -> peaks, cap and the
+    times of the failed attempt, the retry and an oracle's first step."""
+    small, big = OOM_RUNGS
+    oracles, peaks, first_ms = [], {}, []
+    for rungs in ((small,), (small,), (big,)):
+        gc.collect()
+        torch.cuda.empty_cache()
+        tr = fault_trainer(None, None, "cuda", rungs=rungs, steps=OOM_STEPS)
+        t0 = time.perf_counter()
+        tr.run(1)
+        _sync("cuda")
+        first_ms.append((time.perf_counter() - t0) * 1e3)
+        if rungs == (big,):
+            peaks[big] = tr.measured_bytes[big]
+        else:
+            peaks[small] = max(peaks.get(small, 0.0),
+                               tr.measured_bytes[small])
+            tr.run(OOM_STEPS - 1)
+            oracles.append(_bits(tr.state.params).clone())
+        del tr
+    check(peaks[big] > peaks[small], f"peaks {peaks}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    total = torch.cuda.get_device_properties(0).total_memory
+    cap = (peaks[small] + peaks[big]) / 2
+    attempts = []
+    try:
+        torch.cuda.set_per_process_memory_fraction(cap / total)
+        tr = fault_trainer(None, None, "cuda", rungs=OOM_RUNGS,
+                           steps=OOM_STEPS)
+        step_fn = tr._step_fn
+
+        def timed(state, batch):
+            t0 = time.perf_counter()
+            try:
+                return step_fn(state, batch)
+            finally:
+                _sync("cuda")
+                attempts.append((int(batch["labels"].shape[0]),
+                                 (time.perf_counter() - t0) * 1e3))
+        tr._step_fn = timed
+        tr.run(OOM_STEPS)
+        _sync("cuda")
+    finally:
+        torch.cuda.set_per_process_memory_fraction(1.0)
+    check(tr.oom_events == [(0, big)] and tr.scaler.microbatch == small
+          and tr.scaler.model.measured_key(big) in tr.scaler.model.poisoned,
+          f"real OOM: events {tr.oom_events}, rung {tr.scaler.microbatch}")
+    got = _bits(tr.state.params)
+    spread = abs_err(oracles[0].view(torch.float32),
+                     oracles[1].view(torch.float32))
+    gap = abs_err(got.view(torch.float32), oracles[0].view(torch.float32))
+    bitwise = torch.equal(oracles[0], oracles[1])
+    check(torch.equal(got, oracles[0]) if bitwise else gap <= 2 * spread,
+          f"masters after the OOM: {gap:.3g} from the oracle, the oracles "
+          f"{spread:.3g} apart")
+    return dict(peaks=peaks, cap=cap, total=total, attempts=attempts,
+                oracle_first_ms=first_ms[0], gap=gap, spread=spread,
+                bitwise=bitwise)
+
+
+def watchdog_cost() -> dict:
+    """Steps of one ResNet-18 trainer at rung 32 with no fault plan and no
+    per-step logging, the watchdog off and on in turns (``WATCH_TURNS``
+    blocks of ``WATCH_BLOCK`` steps each): the median ms a step of each."""
+    from repro_torch.resilience import DivergenceWatchdog, RecoveryConfig
+    gc.collect()
+    torch.cuda.empty_cache()
+    tr = fault_trainer(None, None, "cuda", rungs=(32,), log_every=1 << 30)
+    tr.run(3)                                 # first-step work out of the way
+    times = {"off": [], "on": []}
+    for turn in ["off", "on", "on", "off"] * ((WATCH_TURNS + 1) // 2):
+        tr._watchdog = DivergenceWatchdog(
+            RecoveryConfig(watchdog=True)) if turn == "on" else None
+        _sync("cuda")
+        t0 = time.perf_counter()
+        tr.run(WATCH_BLOCK)
+        _sync("cuda")
+        times[turn].append((time.perf_counter() - t0) * 1e3 / WATCH_BLOCK)
+    return {k: statistics.median(v) for k, v in times.items()} | {
+        "blocks": times}
+
+
+def faults_phase(card: str, dev) -> dict:
+    """Phase 9: the burst's kernel inputs, the fault plan on the card and
+    on the CPU (the trails must agree), a real OOM, the watchdog's cost."""
+    check_burst_kernels(vision_view(), dev)
+    on_card = fault_soak("cuda")
+    t0 = time.perf_counter()
+    on_cpu = fault_soak("cpu")
+    cpu_s = time.perf_counter() - t0
+    for k in ("code", "oom_events", "rollback_events", "log", "skipped",
+              "lr_demote", "restored", "fell_back", "final_step",
+              "dispatches"):
+        check(on_card[k] == on_cpu[k],
+              f"{k}: card {on_card[k]}, CPU {on_cpu[k]}")
+    log(f"faults, ResNet-18 Tri-Accel at rungs {FAULT_RUNGS} with "
+        f"{FAULT_RECOVERY}: exit {on_card['code']}; oom_events "
+        f"{on_card['oom_events']}, rollback_events "
+        f"{on_card['rollback_events']}, skipped {on_card['skipped']} "
+        f"(slabs and BN state bitwise), lr_demote {on_card['lr_demote']}, "
+        f"loss scale {on_card['loss_scale']}; restart fell back to step "
+        f"{on_card['restored']} and ended at {on_card['final_step']} with "
+        f"lr_demote {on_card['final_lr_demote']}; {on_card['dispatches']} "
+        f"dispatches reached the step, launches {on_card['launches']}; "
+        f"fault log {[(s, st) for s, st, _ in on_card['log']]}; the same "
+        f"trails on the CPU ({cpu_s:.1f} s)")
+    oom = real_oom()
+    (a_rung, a_ms), (r_rung, r_ms) = oom["attempts"][:2]
+    masters = ("bitwise the oracles'" if oom["bitwise"] else
+               f"{oom['gap']:.3g} from an oracle's, the two oracles "
+               f"{oom['spread']:.3g} apart")
+    log(f"faults, real OOM ({card}): peaks {oom['peaks']} bytes, cap "
+        f"{oom['cap']:.0f} of {oom['total']} bytes; the failed attempt at "
+        f"rung {a_rung} {a_ms:.3f} ms, the retry at rung {r_rung} "
+        f"{r_ms:.3f} ms (an oracle's first step at rung {OOM_RUNGS[0]} "
+        f"{oom['oracle_first_ms']:.3f} ms); masters after {OOM_STEPS} steps "
+        f"{masters}")
+    wd = watchdog_cost()
+    log(f"faults ({card}): a rollback costs {on_card['rollback_ms']:.3f} ms "
+        f"(waiting out the background write of the newest generation "
+        f"{on_card['writer_ms']:.3f} ms, the restore and demotion "
+        f"{on_card['restore_ms']:.3f} ms, then {on_card['replayed']} "
+        f"replayed steps; a plain step "
+        f"{on_card['step_ms']:.3f} ms); the injected OOM step (a raise, "
+        f"then rung {FAULT_RUNGS[0]}'s first step) "
+        f"{on_card['oom_step_ms']:.3f} ms; the real OOM step-down "
+        f"{a_ms + r_ms:.3f} ms; a step at rung 32 with the watchdog off "
+        f"{wd['off']:.3f} ms, on {wd['on']:.3f} ms (medians of "
+        f"{WATCH_BLOCK}-step blocks {wd['blocks']})")
+    return on_card
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--steps", type=int, default=50,
@@ -3451,6 +3856,14 @@ def main() -> int:
             f"device-to-host copy), background write {r['write_ms']:.3f} "
             f"ms, maybe_restore on the card {r['restore_ms']:.3f} ms")
     log(f"checkpoint phase in {time.perf_counter() - t_phase:.1f} s")
+
+    # faults and recovery: the fault plan's path with its counts read
+    # around it, a real OOM, the costs beside the card's name and limit
+    t_phase = time.perf_counter()
+    faults = faults_phase(card, dev)
+    for k in ("fused_stats", "fused_apply"):
+        res[k]["fault_path_launches"] = faults["launches"][k]
+    log(f"faults phase in {time.perf_counter() - t_phase:.1f} s")
 
     rows = [{"name": rname, "route": "cuda", "source": src,
              "replaces": replaces, "launches": launches[rname],

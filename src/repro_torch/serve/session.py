@@ -83,8 +83,8 @@ class ServeSession:
             raise NotImplementedError(f"prefill_chunk {_LATER}")
         if fault_plan is not None:
             raise NotImplementedError(
-                "fault plans and OOM recovery come with the resilience "
-                "slice of the port")
+                "serving-side fault plans and OOM recovery are not ported "
+                "yet (ROADMAP A11b)")
         self.device = resolve_device(device)
         self.task = as_task(task, self.device)
         self.cfg = cfg
@@ -295,8 +295,8 @@ class ServeSession:
         request on an out-of-memory error; the port does not recover yet."""
         raise NotImplementedError(
             f"out of memory in {where} at rung {self.rung}, tier "
-            f"{self.tier}: OOM recovery comes with the resilience slice of "
-            "the port") from err
+            f"{self.tier}: serving-side OOM recovery is not ported yet "
+            "(ROADMAP A11b)") from err
 
     def _first_token(self, req: Request, tok0: int):
         req.tokens = [int(tok0)]

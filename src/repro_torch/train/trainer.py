@@ -17,19 +17,31 @@ train step, on one device.
     checkpoint at the top of the next step, then ``SystemExit(143)``;
     ``maybe_restore`` resumes from the newest generation that verifies,
     whichever package wrote it;
-  * on ``torch.cuda.OutOfMemoryError``: poison the rung, step down and
-    re-run the same batch (data is a pure function of (seed, step)); a
-    blocking checkpoint before an OOM on the smallest rung re-raises.
+  * on ``torch.OutOfMemoryError`` (the caching allocator's, or a fault
+    plan's injected one; ``resilience.is_oom_error``): poison the rung,
+    step down and re-run the same batch (data is a pure function of
+    (seed, step)), at most ``recovery.max_oom_retries`` times; a blocking
+    checkpoint before an OOM on the smallest rung re-raises;
+  * with ``recovery.watchdog``: the divergence watchdog reads each step's
+    loss and ``grads_finite`` (one host read a step) and, on a run of
+    non-finite steps or a loss spike, rolls back to the newest committed
+    generation with the loss scale and ``ControlState.lr_demote``
+    demoted; the checkpoint cadence holds while suspect steps are in
+    flight;
+  * with ``fault_plan`` (``resilience.FaultPlan``): the reference's
+    trainer fault sites, ``train.step_oom``, ``train.nonfinite``,
+    ``train.sigterm`` and ``ckpt.corrupt``.
 
 PyTorch runs eagerly, so the reference's AOT executable cache has no
-counterpart. Fault plans and the divergence watchdog are not ported yet
-and raise when configured (ROADMAP A11).
+counterpart, and nothing donates the state: a failed dispatch leaves it
+intact for the retry.
 """
 from __future__ import annotations
 
 import dataclasses
 import signal
 import time
+import traceback
 from typing import Any, Dict, List, Optional
 
 import numpy as np
@@ -46,6 +58,11 @@ from repro_torch.core.controller import init_control, with_curvature
 from repro_torch.core.precision import TriAccelConfig
 from repro_torch.kernels.layout import slab_view
 from repro_torch.optim.optimizers import adamw, sgdm
+from repro_torch.resilience.faults import (FaultPlan, corrupt_checkpoint,
+                                           is_oom_error, simulated_oom)
+from repro_torch.resilience.recovery import (DivergenceError,
+                                             DivergenceWatchdog,
+                                             RecoveryConfig)
 from repro_torch.train.schedules import warmup_cosine
 from repro_torch.train.train_step import (TrainState, init_compute,
                                           make_train_step, pack_state,
@@ -74,8 +91,10 @@ class TrainerConfig:
     b_curv: int = 4
     elastic_true_batch: bool = True   # paper mode: rung changes global B
     fused_update: Optional[bool] = None
-    #: re-runs of the same batch at smaller rungs before an OOM re-raises
-    max_oom_retries: int = 3
+    #: recovery supervision: the OOM retry budget, the divergence
+    #: watchdog, the rollback demotions
+    recovery: RecoveryConfig = dataclasses.field(
+        default_factory=RecoveryConfig)
 
 
 def set_f32_numerics(device: torch.device) -> None:
@@ -92,14 +111,11 @@ class Trainer:
     be the task's)."""
 
     def __init__(self, task, tac: TriAccelConfig, tcfg: TrainerConfig,
-                 device="cuda", fault_plan=None):
+                 device="cuda", fault_plan: Optional[FaultPlan] = None):
         self.device = resolve_device(device)
         if task.device != self.device:
             raise ValueError(f"task lives on {task.device}, trainer asked "
                              f"for {self.device}")
-        if fault_plan is not None:
-            raise NotImplementedError(
-                "fault plans are not ported yet (ROADMAP A11)")
         set_f32_numerics(self.device)
         self.task, self.cfg, self.tac, self.tcfg = task, task.cfg, tac, tcfg
         gen = torch.Generator().manual_seed(tcfg.seed)
@@ -153,7 +169,12 @@ class Trainer:
                      if tcfg.ckpt_dir else None)
         self._preempted = False
         self.metrics_log: List[Dict[str, Any]] = []
+        # recovery supervision
+        self.fault_plan = fault_plan
+        self._watchdog = (DivergenceWatchdog(tcfg.recovery)
+                          if tcfg.recovery.watchdog else None)
         self.oom_events: list = []       # (step, rung) per caught OOM
+        self.rollback_events: list = []  # (diverged_step, restored_step)
 
     # ------------------------------------------------------------- utils --
     def params_tree(self):
@@ -267,15 +288,25 @@ class Trainer:
 
     # -------------------------------------------------------------- run ---
     def run(self, steps: Optional[int] = None):
+        """Take ``steps`` steps (``total_steps`` by default) from the
+        state's ``control.step``. A rollback sends the loop back to the
+        restored step and leaves the end where it was."""
         steps = steps if steps is not None else self.tcfg.total_steps
         start = int(self.state.control.step)
         end = start + steps
         t0 = time.time()
-        for step in range(start, end):
+        step = start
+        while step < end:
+            if self.fault_plan is not None and \
+                    self.fault_plan.fires("train.sigterm", step):
+                self._deliver_sigterm()
             if self._preempted:
                 if self.ckpt:
                     self.ckpt.save(step, self._save_state(), block=True)
+                    self._maybe_corrupt(step)
                 raise SystemExit(143)
+            if self.fault_plan is not None:
+                self._inject_nonfinite(step)
             self.state, metrics, rung = self._dispatch(step)
 
             # §3.2 curvature cadence (host side, tiny batch)
@@ -291,30 +322,56 @@ class Trainer:
                                     measured_bytes=self.measured_bytes.get(
                                         rung))
             # checkpoint cadence: the generation is named ``step`` and
-            # holds control.step == step + 1, as the reference's
-            if self.ckpt and step > 0 and step % self.tcfg.ckpt_every == 0:
+            # holds control.step == step + 1, as the reference's; held
+            # while the watchdog has suspect steps in flight, so that a
+            # mid-burst state never displaces the clean generation a
+            # rollback needs
+            if self.ckpt and step > 0 and step % self.tcfg.ckpt_every == 0 \
+                    and (self._watchdog is None or self._watchdog.healthy):
                 self.ckpt.save(step, self._save_state())
+                self._maybe_corrupt(step)
             if step % self.tcfg.log_every == 0:
                 m = {k: float(v) for k, v in metrics.items()}
                 m.update(step=step, rung=rung,
                          mem_gb=self.scaler._mem(self.scaler.idx) / 1e9,
                          wall_s=round(time.time() - t0, 4))
                 self.metrics_log.append(m)
+            if self._watchdog is not None:
+                loss, finite = torch.stack(
+                    [metrics["loss"].float(),
+                     metrics["grads_finite"].float()]).tolist()
+                if self._watchdog.observe(loss, bool(finite)):
+                    step = self._rollback(step)
+                    continue
+            step += 1
         if self.ckpt:
             self.ckpt.save(end, self._save_state(), block=True)
+            self._maybe_corrupt(end)
         return self.metrics_log
 
+    # ---------------------------------------------------------- recovery --
     def _dispatch(self, step: int):
         """One train step with OOM step-down: an out-of-memory error
-        poisons the rung and re-runs the SAME batch one rung lower, at most
-        ``max_oom_retries`` times; an OOM on the smallest rung re-raises
-        after a blocking checkpoint (the state is never donated, so it is
-        intact)."""
+        (``is_oom_error``: the allocator's ``torch.OutOfMemoryError``, or
+        the ``train.step_oom`` fault's) poisons the rung
+        (``BatchScaler.mark_oom``), steps down and re-runs the SAME batch,
+        at most ``recovery.max_oom_retries`` times; an OOM on the smallest
+        rung re-raises after a blocking checkpoint. Every other error
+        propagates at once.
+
+        The reference checks that a failed dispatch did not consume its
+        donated state buffers. Here nothing is donated: the step builds new
+        tensors, and ``fused_apply`` writes its outputs to fresh ones, so
+        the state a failed attempt read is intact for the retry and the
+        rescue checkpoint."""
         err: Optional[BaseException] = None
-        for _ in range(self.tcfg.max_oom_retries + 1):
+        for _ in range(self.tcfg.recovery.max_oom_retries + 1):
             rung = self.scaler.microbatch
-            batch = self._batch_for_rung(rung, step)
             try:
+                if self.fault_plan is not None and self.fault_plan.fires(
+                        "train.step_oom", step, rung=rung):
+                    raise simulated_oom("train.step_oom", step, rung)
+                batch = self._batch_for_rung(rung, step)
                 if rung in self.measured_bytes or \
                         self.device.type != "cuda":
                     state, metrics = self._step_fn(self.state, batch)
@@ -327,7 +384,12 @@ class Trainer:
                         rung, peak, rung * self.scaler.seq_len,
                         ladder=self.tac.ladder)
                 return state, metrics, rung
-            except torch.cuda.OutOfMemoryError as e:
+            except Exception as e:          # noqa: BLE001 — filtered below
+                if not is_oom_error(e):
+                    raise
+                # the failed attempt's activations are locals of the frames
+                # its traceback holds: drop them before the retry allocates
+                traceback.clear_frames(e.__traceback__)
                 err = e
                 self.oom_events.append((step, rung))
                 if self.scaler.mark_oom(rung) == rung:
@@ -335,6 +397,77 @@ class Trainer:
         if self.ckpt:
             self.ckpt.save(step, self._save_state(), block=True)
         raise err
+
+    def _rollback(self, step: int) -> int:
+        """Divergence rollback: restore the newest committed generation
+        that verifies and apply the deterministic demotion, the loss scale
+        down (floored at 1.0 on the gpu ladder) and ``ControlState
+        .lr_demote`` down, so that the replay is not a bitwise rerun into
+        the same blow-up. Returns the restored step (the loop resumes
+        there); bounded by ``recovery.max_rollbacks``."""
+        rec = self.tcfg.recovery
+        if self.ckpt:
+            self.ckpt.wait()    # never race an in-flight save
+        if not (self.tcfg.ckpt_dir
+                and latest_step(self.tcfg.ckpt_dir) is not None):
+            raise DivergenceError(
+                f"diverged at step {step} with no committed checkpoint "
+                f"to roll back to")
+        if len(self.rollback_events) >= rec.max_rollbacks:
+            raise DivergenceError(
+                f"diverged at step {step}: rollback budget "
+                f"({rec.max_rollbacks}) exhausted")
+        restored = self.maybe_restore()
+        ctrl = self.state.control
+        f32 = dict(dtype=torch.float32, device=self.device)
+        ls = torch.as_tensor(ctrl.loss_scale, **f32) * rec.loss_scale_demotion
+        if self.tac.ladder == "gpu":
+            ls = torch.clamp_min(ls, 1.0)
+        demote = torch.as_tensor(ctrl.lr_demote, **f32) * rec.lr_demotion
+        self.state = self.state._replace(control=ctrl._replace(
+            loss_scale=ls, lr_demote=demote))
+        self._watchdog.reset()
+        self.rollback_events.append((step, restored))
+        return restored
+
+    def _inject_nonfinite(self, step: int):
+        """train.nonfinite fault: force the carried loss scale to inf so
+        this step's gradient overflows through the real finite gate (the
+        step skips its update, ``grads_finite`` is 0). The gpu ladder's
+        overflow rule then halves the scale and caps it at 2^24, so a
+        burst re-fires each step; recovery is the watchdog's rollback, as
+        for an organic divergence."""
+        if self.fault_plan.fires("train.nonfinite", step) is None:
+            return
+        ctrl = self.state.control
+        bad = torch.full((), float("inf"), dtype=torch.float32,
+                         device=self.device)
+        self.state = self.state._replace(
+            control=ctrl._replace(loss_scale=bad))
+
+    def _deliver_sigterm(self):
+        """train.sigterm fault: deliver a real signal to the process so the
+        chained preemption handlers run, then wait for the flag (CPython
+        runs handlers at the next bytecode boundary)."""
+        signal.raise_signal(signal.SIGTERM)
+        for _ in range(1000):
+            if self._preempted:
+                return
+            time.sleep(0.001)
+        self._preempted = True    # handler not installed: honor the fault
+
+    def _maybe_corrupt(self, step: int):
+        """ckpt.corrupt fault: damage the generation just committed (after
+        waiting out the background writer: the fault models storage
+        tearing a completed commit, which verification and the restore's
+        fallback must survive)."""
+        if self.fault_plan is None:
+            return
+        f = self.fault_plan.fires("ckpt.corrupt", step)
+        if f is None:
+            return
+        self.ckpt.wait()
+        corrupt_checkpoint(self.tcfg.ckpt_dir, f.kind, self.fault_plan.rng)
 
     def _curvature(self, step: int):
         """The §3.2 refresh on ``b_curv`` samples of this step's batch:

@@ -27,9 +27,12 @@ What must hold:
     -lr m1 up to one f32 rounding on each side, 2^-21 (|p0| + |q0| + |p1|
     + |q1|) for the two sides' p and q; var_ema within rtol 1e-2;
   * a resumed CPU run is bitwise the uninterrupted one;
-  * the reference's storage faults (``CORRUPTION_KINDS``) on port-written
+  * the storage faults (``CORRUPTION_KINDS``, dealt by the port's
+    ``corrupt_checkpoint`` and once by the reference's) on port-written
     generations fall back a generation with a warning, and an explicit
-    step raises.
+    step raises;
+  * the ``Trainer`` takes a fault plan; ``ServeSession`` still refuses
+    one by name.
 """
 import dataclasses
 import json
@@ -50,8 +53,7 @@ from repro.configs import smollm_135m as jconf  # noqa: E402
 from repro.core.controller import ControlState as JControl  # noqa: E402
 from repro.core.precision import TriAccelConfig as JTac  # noqa: E402
 from repro.data.synthetic import LMTaskStream as JStream  # noqa: E402
-from repro.resilience.faults import (CORRUPTION_KINDS,  # noqa: E402
-                                     corrupt_checkpoint)
+from repro.resilience import faults as jfaults  # noqa: E402
 from repro.train import train_step as jts  # noqa: E402
 from repro.train.task import LMTask as JLMTask  # noqa: E402
 from repro.train.trainer import Trainer as JTrainer  # noqa: E402
@@ -62,6 +64,9 @@ from repro_torch.checkpoint import checkpoint as ck  # noqa: E402
 from repro_torch.configs import smollm_135m as conf  # noqa: E402
 from repro_torch.core.precision import TriAccelConfig  # noqa: E402
 from repro_torch.launch import train as launch_train  # noqa: E402
+from repro_torch.resilience import (CORRUPTION_KINDS,  # noqa: E402
+                                    Fault, FaultPlan, corrupt_checkpoint)
+from repro_torch.serve import ServeConfig, ServeSession  # noqa: E402
 from repro_torch.train import paper_harness  # noqa: E402
 from repro_torch.train.task import LMTask  # noqa: E402
 from repro_torch.train.train_step import TrainState  # noqa: E402
@@ -350,6 +355,17 @@ def test_corrupt_generation_falls_back_with_a_warning(kind, tmp_path):
     assert jck.latest_step(str(tmp_path)) == ck.latest_step(str(tmp_path))
 
 
+def test_generation_damaged_by_the_reference_falls_back(tmp_path):
+    """A torn leaf dealt by the reference's ``corrupt_checkpoint`` on a
+    port-written generation: the port falls back as for its own."""
+    first, tmpl = _two_generations(tmp_path)
+    jfaults.corrupt_checkpoint(str(tmp_path), "truncate_leaf",
+                               np.random.default_rng(0))
+    with pytest.warns(RuntimeWarning, match="failed verification"):
+        back = ck.restore_checkpoint(str(tmp_path), tmpl)
+    _assert_bitwise(_port_host(back), first)
+
+
 def test_lr_demote_fill_and_schema_mismatch(tmp_path):
     """A generation written before ``lr_demote`` existed (its entry and
     file both gone: a consistent older schema) restores with the trainer's
@@ -524,8 +540,14 @@ def test_launcher_resumes_after_sigterm(tmp_path, capsys, monkeypatch,
 
 
 def test_fault_plans_still_raise_by_name():
-    with pytest.raises(NotImplementedError, match="A11"):
-        Trainer(LMTask(conf._make(*LM, impl="naive"), device="cpu"),
-                TriAccelConfig(**TAC), TrainerConfig(**TCFG), device="cpu",
-                fault_plan=object())
-
+    """The ``Trainer`` takes a ``FaultPlan`` (trainer-side resilience is
+    ported); ``ServeSession`` still refuses one by name (ROADMAP A11b)."""
+    plan = FaultPlan([Fault("train.sigterm", step=5)])
+    task = LMTask(conf._make(*LM, impl="naive"), device="cpu")
+    tr = Trainer(task, TriAccelConfig(**TAC), TrainerConfig(**TCFG),
+                 device="cpu", fault_plan=plan)
+    assert tr.fault_plan is plan and tr.rollback_events == []
+    with pytest.raises(NotImplementedError, match="A11b"):
+        ServeSession(task, ServeConfig(prompt_len=8, total_len=16,
+                                       rungs=(1,), tiers=(1,)),
+                     device="cpu", fault_plan=plan)
