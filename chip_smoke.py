@@ -162,17 +162,49 @@ Phases (any failure raises and the script exits non-zero):
      step 24 with the demotion kept; fused_stats and fused_apply launch
      once for each dispatch that reached the step; the same plan on the
      CPU must give the same ``oom_events``, ``rollback_events``, fault
-     log and restart. Then a real OOM: the allocator capped
+     log and restart. Then a real OOM, in a process of its own: the
+     allocator capped
      (``set_per_process_memory_fraction``) halfway between the peaks that
      rungs 32 and 64 measure, a trainer at rungs (32, 64) from 64 with no
      plan catches the allocator's ``torch.OutOfMemoryError``, poisons 64
-     and re-runs the batch at 32; its masters after 6 steps equal two
-     fault-free oracles' at 32 (bitwise where the oracles are, else within
-     twice their spread). Printed beside the card's name and power limit:
+     and re-runs the batch at 32, and a trainer whose first step at 64
+     the ``train.step_oom`` fault fails takes the same recovery uncapped;
+     with cuDNN's deterministic algorithms for all of them, both recovered
+     trainers' masters after 6 steps equal two fault-free oracles' at 32
+     (bitwise where the oracles are, else within twice their spread).
+     Printed beside the card's name and power limit:
      a rollback's cost (the writer's wait, the restore, the replayed
      steps), the injected and the real OOM step-down, and the step time
      at rung 32 with the watchdog off and on (medians of 10-step blocks
-     in turns).
+     in turns);
+ 10. serving faults and recovery (``ServeSession``'s OOM recovery, the
+     soak): the reference soak's serving plan (``soak.serve_plan``: an
+     OOM on rung 2 from step 4, one on rung 1 at tier 1 at step 10,
+     latency spikes at 14 and 15) and ``ServeConfig`` (rungs 1/2, tiers
+     0/1, 4 tokens) through a ``ServeSession`` over smollm-135m at full
+     width and depth, prompt 1024, cache 2048, six requests: every
+     request done or failed, the trail (steps, oom_events, poisoned,
+     rung and tier history, fault log) equal to
+     ``soak.serve_soak(device="cpu")`` run in the phase, no path run
+     that ``warm()`` did not, and the launches exact (30
+     ``flash_attention`` a prefill and 30 ``flash_decode`` a decode that
+     reached the engine, the tier-0 leaves' two-pass ``qdq_cast``);
+     ``soak.main`` on the card (both legs) exits 0; then a real OOM, in
+     a process of its own with the allocator's expandable segments: a
+     session at rungs (1, 2), prompt 1792, cache 2048, warmed uncapped,
+     the allocator capped between what every rung-1 path needs (admit,
+     decode, both repacks; from ``engine.measured``) and what a rung-2
+     admit needs, eight requests of 16 tokens: the first decodes alone at
+     rung 1, the other seven arrive, the climb to rung 2 moves its row,
+     and the rung-2 admit fails: the allocator's
+     ``torch.OutOfMemoryError`` is caught, (2, 1) poisoned, the rung
+     stepped down through the repack that moves the live row back, the
+     shed request requeued, all eight done with the tokens of two
+     fault-free sessions at rung 1 (bitwise where they agree), the live
+     one's included. Printed beside the card's name
+     and power limit: the injected step-down, the tier demotion, a shed
+     request's TTFT against an unshed one's, the real OOM's failed admit,
+     its recovery and the retry, the phase's seconds.
 
 A kernel that runs on several main paths at different shapes
 (fused_stats and fused_apply: ResNet-18, EfficientNet-B0 and LM training;
@@ -204,7 +236,9 @@ with the TF32 bound (``f32_fma_bound_ms`` beside it);
 ``flash_attention_bwd_dq_simt`` and ``flash_attention_bwd_dkv_simt`` the
 SIMT kernels (bf16 head dims the tensor-core kernels refuse), timed in
 f32 as before. The ``fused_stats`` and ``fused_apply`` rows carry
-``fault_path_launches``, their launches on phase 9's fault plan path.
+``fault_path_launches``, their launches on phase 9's fault plan path;
+the ``flash_attention``, ``flash_decode`` and ``qdq_cast`` rows theirs
+on phase 10's serving plan path.
 ``qdq_cast`` is the two-pass form the serving path launches,
 ``qdq_cast_one_pass`` the one-pass form the LM path's tier-0 set launches, both timed over the 11 leaves, f32 in
 and bf16 out as those paths cast (``f32_out_*``: the same with f32 out).
@@ -3530,73 +3564,104 @@ def fault_soak(device) -> dict:
 
 
 def real_oom() -> dict:
-    """Recovery from the allocator's own ``torch.OutOfMemoryError``: two
+    """Phase 9's real OOM, in a process of its own (``in_child``): recovery
+    from the allocator's own ``torch.OutOfMemoryError``. Two
     fault-free oracles at rung 32 and a probe at rung 64 (one at a time)
-    measure each rung's peak (``Trainer.measured_bytes``); the allocator
-    is capped (``set_per_process_memory_fraction``) halfway between them,
-    and a trainer at rungs (32, 64) starting at 64, with no fault plan,
-    must catch the OOM of its first step, poison rung 64 and re-run the
-    batch at 32, then take ``OOM_STEPS`` steps. Its master slab equals the
-    oracles' bitwise where the two oracles are bitwise equal, else within
-    twice their spread (cuDNN's convolution backward is not deterministic
-    at batch 32). The cap is lifted in ``finally``. -> peaks, cap and the
-    times of the failed attempt, the retry and an oracle's first step."""
+    measure each rung's peak (``Trainer.measured_bytes``); a trainer at
+    rungs (32, 64) starting at 64 whose first step the ``train.step_oom``
+    fault fails takes the same recovery without the allocator; then the
+    allocator is capped (``set_per_process_memory_fraction``) halfway
+    between the peaks, and a trainer at rungs (32, 64) starting at 64, with
+    no fault plan, must catch the OOM of its first step, poison rung 64 and
+    re-run the batch at 32. Each takes ``OOM_STEPS`` steps. Every trainer
+    here runs cuDNN's deterministic algorithms (``cudnn.deterministic``,
+    put back in ``finally``; the default ones sum the convolution backward
+    in no fixed order at batch 32). Each recovered trainer's master slab
+    equals the oracles' bitwise where the two oracles are bitwise equal,
+    else lies within twice their spread. The cap is lifted in ``finally``.
+    The cap counts the bytes the allocator reserves, the peaks those it
+    allocates: in the script's own process, blocks that earlier phases
+    split inside live segments keep so many bytes reserved beyond the
+    allocated ones that no cap there both fails rung 64 and leaves rung
+    32 its convolutions' workspaces (PERF.md §6). -> peaks, cap,
+    the distances and the times of the failed attempt, the retry and an
+    oracle's first step, JSON ready."""
+    from repro_torch.resilience import Fault, FaultPlan
     small, big = OOM_RUNGS
-    oracles, peaks, first_ms = [], {}, []
-    for rungs in ((small,), (small,), (big,)):
+    oracles, peaks, first_ms, attempts = [], {}, [], []
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for rungs in ((small,), (small,), (big,)):
+            gc.collect()
+            torch.cuda.empty_cache()
+            tr = fault_trainer(None, None, "cuda", rungs=rungs,
+                               steps=OOM_STEPS)
+            t0 = time.perf_counter()
+            tr.run(1)
+            _sync("cuda")
+            first_ms.append((time.perf_counter() - t0) * 1e3)
+            if rungs == (big,):
+                peaks[big] = tr.measured_bytes[big]
+            else:
+                peaks[small] = max(peaks.get(small, 0.0),
+                                   tr.measured_bytes[small])
+                tr.run(OOM_STEPS - 1)
+                oracles.append(_bits(tr.state.params).clone())
+            del tr
+        check(peaks[big] > peaks[small], f"peaks {peaks}")
         gc.collect()
         torch.cuda.empty_cache()
-        tr = fault_trainer(None, None, "cuda", rungs=rungs, steps=OOM_STEPS)
-        t0 = time.perf_counter()
-        tr.run(1)
-        _sync("cuda")
-        first_ms.append((time.perf_counter() - t0) * 1e3)
-        if rungs == (big,):
-            peaks[big] = tr.measured_bytes[big]
-        else:
-            peaks[small] = max(peaks.get(small, 0.0),
-                               tr.measured_bytes[small])
-            tr.run(OOM_STEPS - 1)
-            oracles.append(_bits(tr.state.params).clone())
-        del tr
-    check(peaks[big] > peaks[small], f"peaks {peaks}")
-    gc.collect()
-    torch.cuda.empty_cache()
-    total = torch.cuda.get_device_properties(0).total_memory
-    cap = (peaks[small] + peaks[big]) / 2
-    attempts = []
-    try:
-        torch.cuda.set_per_process_memory_fraction(cap / total)
-        tr = fault_trainer(None, None, "cuda", rungs=OOM_RUNGS,
+        plan = FaultPlan([Fault("train.step_oom", step=0, rung=big)])
+        tr = fault_trainer(None, plan, "cuda", rungs=OOM_RUNGS,
                            steps=OOM_STEPS)
-        step_fn = tr._step_fn
-
-        def timed(state, batch):
-            t0 = time.perf_counter()
-            try:
-                return step_fn(state, batch)
-            finally:
-                _sync("cuda")
-                attempts.append((int(batch["labels"].shape[0]),
-                                 (time.perf_counter() - t0) * 1e3))
-        tr._step_fn = timed
         tr.run(OOM_STEPS)
-        _sync("cuda")
+        check(tr.oom_events == [(0, big)] and tr.scaler.microbatch == small,
+              f"injected OOM: events {tr.oom_events}, rung "
+              f"{tr.scaler.microbatch}")
+        injected = _bits(tr.state.params).clone()
+        del tr
+        gc.collect()
+        torch.cuda.empty_cache()
+        total = torch.cuda.get_device_properties(0).total_memory
+        cap = (peaks[small] + peaks[big]) / 2
+        try:
+            torch.cuda.set_per_process_memory_fraction(cap / total)
+            tr = fault_trainer(None, None, "cuda", rungs=OOM_RUNGS,
+                               steps=OOM_STEPS)
+            step_fn = tr._step_fn
+
+            def timed(state, batch):
+                t0 = time.perf_counter()
+                try:
+                    return step_fn(state, batch)
+                finally:
+                    _sync("cuda")
+                    attempts.append((int(batch["labels"].shape[0]),
+                                     (time.perf_counter() - t0) * 1e3))
+            tr._step_fn = timed
+            tr.run(OOM_STEPS)
+            _sync("cuda")
+        finally:
+            torch.cuda.set_per_process_memory_fraction(1.0)
     finally:
-        torch.cuda.set_per_process_memory_fraction(1.0)
+        torch.backends.cudnn.deterministic = deterministic
     check(tr.oom_events == [(0, big)] and tr.scaler.microbatch == small
           and tr.scaler.model.measured_key(big) in tr.scaler.model.poisoned,
           f"real OOM: events {tr.oom_events}, rung {tr.scaler.microbatch}")
-    got = _bits(tr.state.params)
-    spread = abs_err(oracles[0].view(torch.float32),
-                     oracles[1].view(torch.float32))
-    gap = abs_err(got.view(torch.float32), oracles[0].view(torch.float32))
+    f32 = lambda t: t.view(torch.float32)  # noqa: E731
+    spread = abs_err(f32(oracles[0]), f32(oracles[1]))
     bitwise = torch.equal(oracles[0], oracles[1])
-    check(torch.equal(got, oracles[0]) if bitwise else gap <= 2 * spread,
-          f"masters after the OOM: {gap:.3g} from the oracle, the oracles "
-          f"{spread:.3g} apart")
+    gaps = {}
+    for name, got in (("injected", injected),
+                      ("real", _bits(tr.state.params))):
+        gaps[name] = abs_err(f32(got), f32(oracles[0]))
+        check(torch.equal(got, oracles[0]) if bitwise
+              else gaps[name] <= 2 * spread,
+              f"masters after the {name} OOM: {gaps[name]:.3g} from the "
+              f"oracle, the oracles {spread:.3g} apart")
     return dict(peaks=peaks, cap=cap, total=total, attempts=attempts,
-                oracle_first_ms=first_ms[0], gap=gap, spread=spread,
+                oracle_first_ms=first_ms[0], gaps=gaps, spread=spread,
                 bitwise=bitwise)
 
 
@@ -3646,13 +3711,16 @@ def faults_phase(card: str, dev) -> dict:
         f"dispatches reached the step, launches {on_card['launches']}; "
         f"fault log {[(s, st) for s, st, _ in on_card['log']]}; the same "
         f"trails on the CPU ({cpu_s:.1f} s)")
-    oom = real_oom()
+    oom = in_child("train-real-oom")
     (a_rung, a_ms), (r_rung, r_ms) = oom["attempts"][:2]
-    masters = ("bitwise the oracles'" if oom["bitwise"] else
-               f"{oom['gap']:.3g} from an oracle's, the two oracles "
-               f"{oom['spread']:.3g} apart")
-    log(f"faults, real OOM ({card}): peaks {oom['peaks']} bytes, cap "
-        f"{oom['cap']:.0f} of {oom['total']} bytes; the failed attempt at "
+    masters = ("bitwise the oracles' after the real OOM and after the "
+               "injected one" if oom["bitwise"] else
+               f"{oom['gaps']['real']:.3g} from an oracle's after the real "
+               f"OOM, {oom['gaps']['injected']:.3g} after the injected one, "
+               f"the two oracles {oom['spread']:.3g} apart")
+    log(f"faults, real OOM in a process of its own ({card}): peaks "
+        f"{oom['peaks']} bytes, cap {oom['cap']:.0f} of {oom['total']} "
+        f"bytes; the failed attempt at "
         f"rung {a_rung} {a_ms:.3f} ms, the retry at rung {r_rung} "
         f"{r_ms:.3f} ms (an oracle's first step at rung {OOM_RUNGS[0]} "
         f"{oom['oracle_first_ms']:.3f} ms); masters after {OOM_STEPS} steps "
@@ -3672,6 +3740,401 @@ def faults_phase(card: str, dev) -> dict:
     return on_card
 
 
+# ------------------------------- phase 10: serving faults and recovery ---
+#: the soak's serving plan at smollm-135m's full width and depth: prompt
+#: and cache as on the serving main path (phase 5b), six requests
+SF_PROMPT, SF_CACHE, SF_REQUESTS = 1024, 2048, 6
+#: the real OOM: the rungs (the larger made not to fit), the prompt, the
+#: cache, the requests, the tokens each, and the least room wanted between
+#: the cap and each path's need. A repack holds both rungs' caches, an
+#: admit its rung's and the prefill's own bytes (about 50 MB a 1024-token
+#: prompt), so a cap that fails an admit at the larger rung and passes both
+#: repacks needs the smaller rung's caches below the prefill's bytes: one
+#: row, and a prompt that nearly fills the cache (PERF.md §6)
+ROOM_RUNGS, ROOM_PROMPT, ROOM_CACHE = (1, 2), 1792, 2048
+ROOM_REQUESTS, ROOM_TOKENS, ROOM_MARGIN = 8, 16, 8 << 20
+
+
+def _timing(obj, name: str, spans: list, key) -> None:
+    """Wrap ``obj.<name>`` so that each call appends (``key(*args)`` taken
+    before the call, its ms between two syncs, whether it returned) to
+    ``spans``."""
+    fn = getattr(obj, name)
+
+    def timed(*a, **kw):
+        k, ok = key(*a), False
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        try:
+            out = fn(*a, **kw)
+            ok = True
+            return out
+        finally:
+            torch.cuda.synchronize()
+            spans.append((k, (time.perf_counter() - t0) * 1e3, ok))
+    setattr(obj, name, timed)
+
+
+def _instrument(sess) -> dict:
+    """Spans of a session's recoveries, repacks, decodes and admits, each
+    keyed by (step, ...) as it began."""
+    spans = {"oom": [], "repack": [], "decode": [], "admit": []}
+    eng = sess.engine
+    _timing(sess, "_handle_oom", spans["oom"],
+            lambda where: (sess.steps, sess.rung, sess.tier, where))
+    _timing(eng, "repack", spans["repack"],
+            lambda a, b, *_: (sess.steps, a, b))
+    for path in ("decode", "admit"):
+        _timing(eng, path, spans[path],
+                lambda rung, tier, *_: (sess.steps, rung, tier))
+    return spans
+
+
+def _ttft_ms(reqs) -> dict:
+    """Median time to first token (ms) of the requests a recovery shed
+    (``retries`` > 0) and of the others."""
+    out = {}
+    for kind, sel in (("shed", lambda r: r.retries > 0),
+                      ("unshed", lambda r: r.retries == 0)):
+        xs = [(r.first_token_time - r.submit_time) * 1e3 for r in reqs
+              if sel(r) and r.first_token_step >= 0]
+        out[kind] = statistics.median(xs) if xs else None
+    return out
+
+
+def _trail(sess, plan) -> dict:
+    return dict(steps=sess.steps, oom_events=list(sess.oom_events),
+                poisoned=sorted(sess.mm.poisoned),
+                rung_history=list(sess.rung_history),
+                tier_history=list(sess.tier_history),
+                fault_log=[(s, st) for s, st, _ in plan.log])
+
+
+def serve_faults_full(seed: int = 0) -> dict:
+    """Phase 10a: the soak's serving plan (``soak.serve_plan``: an OOM on
+    rung 2 from step 4, one on rung 1 at tier 1 from step 10, latency
+    spikes at steps 14 and 15) and ``ServeConfig`` (rungs 1/2, tiers 0/1,
+    4 tokens, ``t_ctrl`` 4, ``max_request_retries`` 2) through a
+    ``ServeSession`` over smollm-135m at full width and depth (30 layers,
+    134,515,008 parameters, seeded init), prompt ``SF_PROMPT``, cache
+    ``SF_CACHE``, ``SF_REQUESTS`` seeded prompts. Every request ends done
+    or failed, one at least done; no path runs that ``warm()`` did not;
+    the launches are exact: ``flash_attention`` 30 a prefill that reached
+    the engine (tensor-core route), ``flash_decode`` 30 a decode that did,
+    ``qdq_cast`` (two-pass) once a tier-0 leaf (an injected OOM raises
+    before its dispatch and launches nothing). -> the trail, launches,
+    spans and requests."""
+    from repro_torch import tree as tu
+    from repro_torch.kernels import ops
+    from repro_torch.models.registry import get_task
+    from repro_torch.resilience import soak
+    from repro_torch.serve import ServeSession
+    task = get_task("smollm-135m")
+    n_layers, vocab = task.cfg.num_layers, task.cfg.vocab_size
+    plan = soak.serve_plan(seed)
+    cfg = soak.serve_config(prompt_len=SF_PROMPT, total_len=SF_CACHE,
+                            seed=seed)
+    prompts = np.random.default_rng(seed).integers(0, vocab,
+                                                   (SF_REQUESTS, SF_PROMPT))
+    gc.collect()
+    torch.cuda.empty_cache()
+    ops.reset_launches()
+    sess = ServeSession(task, cfg, fault_plan=plan)
+    n_params = sum(x.numel() for x in tu.leaves(sess.engine.params_by_tier[1]))
+    check(n_layers == 30 and n_params == 134_515_008,
+          f"smollm-135m at {n_layers} layers, {n_params} parameters")
+    sess.warm()
+    warm_compiles = sess.compile_count
+    spans = _instrument(sess)
+    for p in prompts:
+        sess.submit({"tokens": p})
+    t0 = time.perf_counter()
+    sess.run(max_steps=400)
+    torch.cuda.synchronize()
+    serve_s = time.perf_counter() - t0
+    launches, runs = dict(ops.LAUNCHES), dict(sess.engine.runs)
+    reqs = list(sess.results().values())
+    check(all(r.status in ("done", "failed") for r in reqs)
+          and any(r.status == "done" for r in reqs),
+          f"statuses {[r.status for r in reqs]}")
+    for r in reqs:
+        check(r.status != "done" or (len(r.tokens) == cfg.max_new_tokens
+                                     and all(0 <= t < vocab
+                                             for t in r.tokens)),
+              f"request {r.rid} tokens {r.tokens}")
+    check(sess.compile_count == warm_compiles,
+          f"paths run after warm(): {sess.compile_count - warm_compiles}")
+    check(launches["flash_attention"] == n_layers * runs["admit"]
+          == launches["flash_attention_tc"]
+          and launches["flash_attention_tf32"] == 0
+          and launches["flash_attention_simt"] == 0,
+          f"flash_attention launches {launches} vs {runs}")
+    check(launches["flash_decode"] == n_layers * runs["decode"],
+          f"flash_decode launches {launches} vs {runs}")
+    check(launches["qdq_cast"] == launches["qdq_cast_two_pass"]
+          == len(_lm_leaves()),
+          f"qdq_cast launches {launches} vs the tier-0 leaves (two-pass)")
+    return dict(trail=_trail(sess, plan), launches=launches, runs=runs,
+                spans=spans, ttft=_ttft_ms(reqs), serve_s=serve_s,
+                statuses=[r.status for r in reqs],
+                retries=[r.retries for r in reqs],
+                tokens=sess.decoded_tokens, warm_compiles=warm_compiles)
+
+
+def _serve_tokens(task, cfg, prompts) -> dict:
+    """A fault-free session's tokens for ``prompts``: {rid: tokens}."""
+    from repro_torch.serve import ServeSession
+    sess = ServeSession(task, cfg)
+    sess.warm()
+    for p in prompts:
+        sess.submit({"tokens": p})
+    sess.run()
+    out = {rid: list(r.tokens) for rid, r in sess.results().items()}
+    del sess
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _room(sess, base: float) -> dict:
+    """What each path needs while the session serves (allocated bytes),
+    from ``warm()``'s peaks (``engine.measured``). ``warm()`` ran each path
+    beside the session's own caches at the smaller rung, on scratch caches
+    of the path's rung (a repack from and to scratch caches), with ``base``
+    bytes allocated before it; serving at rung r holds that rung's caches
+    only. So a path's own bytes are its peak less ``base`` and its scratch
+    caches, and its need at rung r is that plus ``base`` less the smaller
+    rung's caches plus rung r's. -> needs by path, the caches, and where a
+    cap fails the larger rung's admit only."""
+    from repro_torch import tree as tu
+    eng = sess.engine
+    small, big = eng.rungs
+    row = sum(x.nbytes for x in tu.leaves(sess.caches)) / small
+    cache = {r: row * r for r in eng.rungs}
+    need = {}
+    for key, peak in eng.measured.items():
+        path, a, b = key
+        held = [a, b] if path == "repack" else [a]
+        own = peak - base - sum(cache[r] for r in held)
+        need["/".join(map(str, key))] = (
+            base - cache[small] + sum(cache[r] for r in held) + own)
+    below = max(need[k] for k in (f"admit/{small}/1", f"decode/{small}/1",
+                                  f"repack/{small}/{big}",
+                                  f"repack/{big}/{small}"))
+    return dict(need=need, cache=cache, below=below,
+                above=need[f"admit/{big}/1"])
+
+
+def serve_real_oom(seed: int = 0) -> dict:
+    """Phase 10b, in a process of its own (``in_child``, with the
+    allocator's expandable segments): the allocator's own
+    ``torch.OutOfMemoryError`` with a request in flight. Two fault-free
+    sessions at the smaller of ``ROOM_RUNGS`` serve the prompts (the
+    oracles); then a session at ``ROOM_RUNGS``, tier 1, no plan, warmed
+    uncapped, the cache emptied, is capped
+    (``set_per_process_memory_fraction``) halfway between what every path
+    of a run at the smaller rung needs (its admit and decode, both
+    repacks) and what an admit at the larger needs (``_room``, from
+    ``engine.measured``), plus what the allocator holds beyond the
+    allocated bytes. The first request is admitted and decodes alone at
+    the smaller rung; then the other ``ROOM_REQUESTS`` - 1 arrive, the
+    session climbs to the larger rung through a repack that moves the live
+    row, and the larger rung's first admit fails. The session must catch
+    the OOM, poison (the larger rung, 1), step down through the repack that
+    moves the live row back, requeue the request it shed and end with
+    every request done, each one's tokens (``ROOM_TOKENS``) the oracles'
+    (bitwise where the two agree), the live one's included. The cap is
+    lifted in ``finally``. -> the numbers, JSON ready."""
+    from repro_torch.models.registry import get_task
+    from repro_torch.serve import ServeConfig, ServeSession
+    task = get_task("smollm-135m")
+    small, big = ROOM_RUNGS
+    kw = dict(prompt_len=ROOM_PROMPT, total_len=ROOM_CACHE, tiers=(1,),
+              max_new_tokens=ROOM_TOKENS, t_ctrl=4, auto_tier=False,
+              mem_cap_bytes=64e9, seed=seed)
+    prompts = np.random.default_rng(seed + 1).integers(
+        0, task.cfg.vocab_size, (ROOM_REQUESTS, ROOM_PROMPT))
+    oracles = [_serve_tokens(task, ServeConfig(rungs=(small,), **kw),
+                             prompts) for _ in range(2)]
+    sess = ServeSession(task, ServeConfig(rungs=ROOM_RUNGS, **kw))
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    sess.warm()
+    out = _room(sess, base)
+    gc.collect()
+    torch.cuda.empty_cache()
+    out.update(allocated=torch.cuda.memory_allocated(),
+               reserved=torch.cuda.memory_reserved())
+    out["cap"] = ((out["below"] + out["above"]) / 2
+                  + out["reserved"] - out["allocated"])
+    out["total"] = torch.cuda.get_device_properties(0).total_memory
+    check(out["above"] - out["below"] >= 2 * ROOM_MARGIN,
+          f"no cap separates rung {small}'s paths from a rung-{big} admit: "
+          f"{out}")
+    spans = _instrument(sess)
+    try:
+        torch.cuda.set_per_process_memory_fraction(out["cap"] / out["total"])
+        live = sess.submit({"tokens": prompts[0]})
+        sess.step()
+        reqs = sess.results()
+        check(reqs[live].status == "active" and sess.rung == small,
+              f"request {live} {reqs[live].status} at rung {sess.rung}")
+        for p in prompts[1:]:
+            sess.submit({"tokens": p})
+        sess.run()
+        torch.cuda.synchronize()
+    finally:
+        torch.cuda.set_per_process_memory_fraction(1.0)
+    out.update(events=list(sess.oom_events),
+               rung_history=list(sess.rung_history))
+    log(f"serving faults, real OOM: {out}")
+    reqs = sess.results()
+    check(len(sess.oom_events) == 1 and sess.oom_events[0][1:] == (big, 1,
+                                                                  "admit")
+          and (big, 1) in sess.mm.poisoned and sess.rung == small
+          and [r for _, r in sess.rung_history] == [small, big, small],
+          f"real OOM: events {sess.oom_events}, rungs {sess.rung_history}, "
+          f"poisoned {sess.mm.poisoned}")
+    at = sess.oom_events[0][0]
+    moved = [k for k, _, ok in spans["repack"] if ok and k[0] == at]
+    check(moved == [(at, small, big), (at, big, small)]
+          and reqs[live].retries == 0 and reqs[live].admitted_step < at,
+          f"the live request {live} (retries {reqs[live].retries}, admitted "
+          f"at step {reqs[live].admitted_step}) through the repacks {moved} "
+          f"around the OOM at step {at}")
+    check(all(r.status == "done" for r in reqs.values())
+          and sum(r.retries for r in reqs.values()) >= 1,
+          f"statuses {[(r.status, r.retries) for r in reqs.values()]}")
+    agree = {rid: oracles[0][rid] == oracles[1][rid] for rid in reqs}
+    for rid, r in reqs.items():
+        check(r.tokens == oracles[0][rid] if agree[rid]
+              else r.tokens in (oracles[0][rid], oracles[1][rid]),
+              f"request {rid}: {r.tokens} vs the oracles' {oracles[0][rid]}"
+              f", {oracles[1][rid]}")
+    failed = [(k, ms) for k, ms, ok in spans["admit"] if not ok]
+    check(len(failed) == 1, f"failed admits {failed}")
+    retry = next((k, ms) for k, ms, ok in spans["admit"]
+                 if ok and k[0] >= at and k[1] == small)
+    out.update(where="admit", failed=failed[0], retry=retry,
+               oom=spans["oom"][0], bitwise=sum(agree.values()),
+               live_bitwise=agree[live],
+               ttft=_ttft_ms(list(reqs.values())))
+    return out
+
+
+def in_child(name: str, alloc_conf: str = "") -> dict:
+    """Run ``CHILDREN[name]`` in a fresh process of this script
+    (``--child``), its allocator set by ``alloc_conf``
+    (``PYTORCH_CUDA_ALLOC_CONF``): there the allocator holds what the check
+    makes and little else, so a cap bites where the bytes the check
+    measures say. -> its result (its last line of output); the others are
+    logged."""
+    import os
+    env = {k: v for k, v in os.environ.items()
+           if k != "PYTORCH_CUDA_ALLOC_CONF"}
+    if alloc_conf:
+        env["PYTORCH_CUDA_ALLOC_CONF"] = alloc_conf
+    proc = subprocess.run([sys.executable, str(Path(__file__).resolve()),
+                           "--child", name], env=env, capture_output=True,
+                          text=True, timeout=900)
+    lines = proc.stdout.strip().splitlines()
+    for line in lines[:-1]:
+        log(f"  [{name}] {line}")
+    check(proc.returncode == 0 and lines,
+          f"{name} exited {proc.returncode}: {proc.stderr[-4000:]}")
+    return json.loads(lines[-1])
+
+
+def soak_on_card() -> dict:
+    """Phase 10c: ``python -m repro_torch.resilience.soak`` on the card
+    (``soak.main``, both legs on cuda), its report to a temporary file."""
+    import io
+    from repro_torch.resilience import soak
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_soak_"))
+    try:
+        t0 = time.perf_counter()
+        with signals_kept(), contextlib.redirect_stdout(io.StringIO()):
+            code = soak.main(["--out", str(tmp / "soak.json")])
+        secs = time.perf_counter() - t0
+        report = json.loads((tmp / "soak.json").read_text())
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    check(code == 0 and report["ok"], f"soak.main: exit {code}, {report}")
+    return dict(seconds=secs, legs={leg["leg"]: leg for leg in report["legs"]})
+
+
+def serve_faults_phase(card: str) -> dict:
+    """Phase 10: the soak's serving plan at full width on the card, its
+    trail against ``soak.serve_soak(device="cpu")`` run here; a real OOM;
+    the soak on the card; the costs beside the card's name and limit."""
+    from repro_torch.resilience import soak
+    t_phase = time.perf_counter()
+    full = serve_faults_full()
+    t0 = time.perf_counter()
+    cpu = soak.serve_soak(device="cpu")
+    cpu_s = time.perf_counter() - t0
+    for k, v in full["trail"].items():
+        check(cpu[k] == v, f"{k}: card {v}, CPU soak {cpu[k]}")
+    tr, sp = full["trail"], full["spans"]
+    log(f"serving faults, smollm-135m (30 layers) under the soak's plan, "
+        f"prompt {SF_PROMPT}, cache {SF_CACHE}, {SF_REQUESTS} requests: "
+        f"{tr['steps']} steps, statuses {full['statuses']}, retries "
+        f"{full['retries']}; oom_events {tr['oom_events']}, poisoned "
+        f"{tr['poisoned']}, rung history {tr['rung_history']}, tier history "
+        f"{tr['tier_history']}, fault log {tr['fault_log']}: the CPU soak's "
+        f"({cpu_s:.1f} s); paths {full['warm_compiles']} after warm(), none "
+        f"new; path runs {full['runs']}; launches "
+        f"{ {k: v for k, v in full['launches'].items() if v} }")
+    sk = soak_on_card()
+    tleg, sleg = sk["legs"]["train"], sk["legs"]["serve"]
+    log(f"serving faults, soak.main on the card in {sk['seconds']:.1f} s: "
+        f"train oom_events {tleg['oom_events']}, rollback_events "
+        f"{tleg['rollback_events']}, restored {tleg['restored_step']}, final "
+        f"step {tleg['final_step']}, lr_demote {tleg['lr_demote']}; serve "
+        f"oom_events {sleg['oom_events']}, compiles during the run "
+        f"{sleg['compiles_during_run']}")
+    # in the script's process, blocks freed inside live segments keep tens
+    # of MB more than the gap between the paths; expandable segments keep
+    # the child's reserved bytes near its allocated ones
+    room = in_child("serve-real-oom", "expandable_segments:True")
+    log(f"serving faults, real OOM at rungs {ROOM_RUNGS}, prompt "
+        f"{ROOM_PROMPT}, cache {ROOM_CACHE}: "
+        f"cap {room['cap']:.0f} of {room['total']} bytes (expandable "
+        f"segments), halfway between {room['below']:.0f} (the most a "
+        f"rung-{ROOM_RUNGS[0]} path or a repack needs) and "
+        f"{room['above']:.0f} (a rung-{ROOM_RUNGS[1]} admit), plus "
+        f"{room['reserved'] - room['allocated']} reserved beyond the "
+        f"allocated bytes; the "
+        f"{room['where']} path failed: events {room['events']}, rung history "
+        f"{room['rung_history']}; all {ROOM_REQUESTS} requests done, tokens "
+        f"bitwise the oracles' in the {room['bitwise']} requests where the "
+        f"two oracles agree, the rest one oracle's")
+    down = next(ms for k, ms, _ in sp["oom"] if k[3] == "decode")
+    down_repack = next(ms for k, ms, _ in sp["repack"]
+                       if k[1:] == (2, 1))
+    demote = next(ms for k, ms, _ in sp["oom"] if k[1:3] == (1, 1))
+    dec = {t: statistics.median(ms for k, ms, ok in sp["decode"]
+                                if ok and k[1:] == (1, t)) for t in (0, 1)}
+    (_, a_ms), (_, r_ms) = room["failed"], room["retry"]
+    log(f"serving faults ({card}): the injected step-down 2 -> 1 "
+        f"{down:.3f} ms (the repack {down_repack:.3f} ms); the tier "
+        f"demotion {demote:.3f} ms, then a decode at rung 1 tier 0 "
+        f"{dec[0]:.3f} ms against tier 1 {dec[1]:.3f} ms (medians); a shed "
+        f"request's TTFT {full['ttft']['shed']:.1f} ms against an unshed "
+        f"one's {full['ttft']['unshed']:.1f} ms (medians); the real OOM's "
+        f"failed {room['where']} {a_ms:.3f} ms, its recovery "
+        f"{room['oom'][1]:.3f} ms, the retry {r_ms:.3f} ms; shed TTFT "
+        f"{room['ttft']['shed']:.1f} ms against unshed "
+        f"{room['ttft']['unshed']:.1f} ms; phase 10 in "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return full
+
+
+#: the checks that run in a process of their own (``in_child``)
+CHILDREN = {"train-real-oom": real_oom, "serve-real-oom": serve_real_oom}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--steps", type=int, default=50,
@@ -3681,6 +4144,8 @@ def main() -> int:
                     help="build and hold the kernels against their plain "
                          "versions (phases 1-3), then stop; prints no "
                          "result line")
+    ap.add_argument("--child", choices=sorted(CHILDREN),
+                    help=argparse.SUPPRESS)   # a check's own process
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
@@ -3691,6 +4156,9 @@ def main() -> int:
               "from a checkout of the repository", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT / "src"))
+    if args.child:                   # a check's own process: in_child
+        print(json.dumps(CHILDREN[args.child](), default=str), flush=True)
+        return 0
 
     card = card_line()
     name = torch.cuda.get_device_name(0)
@@ -3864,6 +4332,14 @@ def main() -> int:
     for k in ("fused_stats", "fused_apply"):
         res[k]["fault_path_launches"] = faults["launches"][k]
     log(f"faults phase in {time.perf_counter() - t_phase:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # serving faults and recovery: the soak's serving plan at full width with
+    # its counts read around it, a real OOM, the soak on the card
+    full = serve_faults_phase(card)
+    for k in ("flash_attention", "flash_decode", "qdq_cast"):
+        res[k]["fault_path_launches"] = full["launches"][k]
 
     rows = [{"name": rname, "route": "cuda", "source": src,
              "replaces": replaces, "launches": launches[rname],

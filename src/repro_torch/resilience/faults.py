@@ -2,7 +2,8 @@
 ``repro.resilience.faults``.
 
 A ``FaultPlan`` is a seeded schedule of named faults threaded through the
-dispatch seams: the trainer's step loop and the checkpoint writer. Each
+dispatch seams: the trainer's step loop, the checkpoint writer and the
+serving session's admit and decode. Each
 fault names a SITE (where in the pipeline it fires), a first eligible
 STEP, and a ``repeats`` budget; ``FaultPlan.fires`` is the single gate
 every seam calls. A trainer with no plan armed pays one ``is None`` check
@@ -23,11 +24,10 @@ Fault sites (the names and semantics of the reference's):
     ckpt.corrupt      storage damage applied to the newest COMMITTED
                       generation right after its save (torn leaf, dropped
                       manifest entry, or stale marker over a deleted dir)
-    serve.step_oom    an OOM at a serve dispatch
-    serve.latency     a decode-step latency spike of ``seconds``
+    serve.step_oom    an OOM at a serve dispatch (admit or decode)
+    serve.latency     a decode-step latency spike of ``seconds``, added to
+                      the step's recorded time
 
-The two serve sites are named so that plans stay interchangeable with the
-reference's; ``ServeSession`` does not take a plan yet (ROADMAP A11b).
 ``FaultPlan.rng`` is numpy's ``default_rng(seed)``, as the reference's, so
 both packages pick the same corruption victims.
 """
@@ -37,6 +37,7 @@ import dataclasses
 import json
 import os
 import shutil
+import traceback
 from typing import Any, List, Optional, Tuple
 
 import numpy as np
@@ -65,6 +66,20 @@ def is_oom_error(e: BaseException) -> bool:
         return True
     msg = str(e)
     return "RESOURCE_EXHAUSTED" in msg or "out of memory" in msg.lower()
+
+
+def release_failed_attempt(e: BaseException, device) -> None:
+    """Free what a dispatch that failed with ``e`` still holds before
+    recovery allocates: the locals of the frames its traceback holds (the
+    attempt's activations), then, on a card, the blocks the caching
+    allocator kept from it. The retry then allocates from an empty cache,
+    as a fresh run does. In a cache that the failed attempt fragmented, a
+    convolution's workspace can fail under a memory cap, and cuDNN then
+    runs another algorithm and keeps it for that shape for the rest of the
+    process: the retry, and every later step, would round differently."""
+    traceback.clear_frames(e.__traceback__)
+    if torch.device(device).type == "cuda":
+        torch.cuda.empty_cache()
 
 
 @dataclasses.dataclass

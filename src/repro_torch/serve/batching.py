@@ -39,7 +39,9 @@ class Request:
     # queued | prefilling | active | done | rejected | failed
     status: str = "queued"
     tokens: List[int] = dataclasses.field(default_factory=list)
-    #: OOM-recovery evictions so far (the recovery comes with its slice)
+    #: OOM-recovery evictions so far: each shed requeues the request for a
+    #: from-scratch admission until the session's ``max_request_retries``
+    #: budget is spent, then status="failed"
     retries: int = 0
     result: Optional[int] = None      # vision: predicted class
     slot: Optional[int] = None
@@ -89,6 +91,12 @@ class RequestQueue:
         that drives the SLO scheduler is accepted and ignored."""
         del ctx
         return self._q.popleft() if self._q else None
+
+    def requeue(self, req: Request) -> None:
+        """Re-enter a request evicted by OOM recovery at the FRONT of the
+        queue: it already waited its turn once."""
+        req.status = "queued"
+        self._q.appendleft(req)
 
     def depth_by_class(self) -> Dict[int, int]:
         depth: Dict[int, int] = {}

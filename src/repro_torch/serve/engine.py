@@ -2,11 +2,14 @@
 and the per-tier weight sets, as ``repro/serve/engine.py``.
 
 PyTorch runs eagerly, so there is nothing to compile: ``warm()`` runs each
-(rung, tier) decode and admit path and each repack once on scratch caches,
-records the peak bytes the allocator held while it ran into ``measured``
-(the reference harvests each executable's ``memory_analysis()``), and
-counts the paths warmed in ``compile_count``. CUDA graphs of the paths
-come later.
+(rung, tier) decode and admit path and each repack once on scratch caches
+and records the peak bytes the allocator held while it ran into
+``measured`` (the reference harvests each executable's
+``memory_analysis()``). ``compile_count`` counts the paths as the
+reference's executable cache does: the first run of each key
+(``("decode" | "admit", rung, tier)``, ``("repack", from, to)``), whether
+``warm()`` or a dispatch ran it, so a session that dispatches only warmed
+paths keeps it unchanged. CUDA graphs of the paths come later.
 
 Precision ladder for decode weights (the serving side of §3.1):
 
@@ -87,13 +90,12 @@ def scatter_prefill(caches, pre, slot: int):
 def repack_caches(caches, src, valid):
     """Re-batch caches onto a new rung: row j of the result is row
     ``src[j]`` of the input where ``valid[j]``, else the empty-slot value
-    (pos = -1). Returns new tensors."""
+    (pos = -1). Returns new tensors, one a leaf and no temporary: the
+    repack's peak is the input and the output caches."""
     def one(name, c):
         t = c.index_select(1, src.long())
-        fill = torch.tensor(-1 if name == "pos" else 0, dtype=t.dtype,
-                            device=t.device)
         mask = valid.reshape((1, valid.shape[0]) + (1,) * (t.ndim - 2))
-        return torch.where(mask, t, fill)
+        return t.masked_fill_(~mask, -1 if name == "pos" else 0)
     return _map_named(one, caches)
 
 
@@ -131,10 +133,10 @@ class ServeEngine:
         #: peak allocated bytes while each path ran in ``warm()``, keyed as
         #: the reference's executables: ("decode", rung, tier), ...
         self.measured: Dict[Tuple, float] = {}
-        self.compile_count = 0        # paths warmed
-        #: how often each path ran, warm-ups included
+        self.compile_count = 0        # distinct path keys run so far
+        #: how often each path ran to its end, warm-ups included
         self.runs = {"decode": 0, "admit": 0, "repack": 0}
-        self._warmed: set = set()
+        self._seen: set = set()
 
     # ------------------------------------------------------------ shapes --
     def _batch_spec(self, rung: int) -> Dict[str, TensorSpec]:
@@ -158,13 +160,24 @@ class ServeEngine:
         return torch.as_tensor(np.asarray(x), dtype=dtype,
                                device=self.device)
 
+    def _first_run(self, key) -> None:
+        """Count ``key``'s first run, where the reference compiles its
+        executable (``_get``): before the path runs, so a dispatch that
+        fails still counts."""
+        if key not in self._seen:
+            self._seen.add(key)
+            self.compile_count += 1
+
     # ------------------------------------------------------------- paths --
     @torch.no_grad()
     def decode(self, rung, tier, caches, token, index, valid=None):
         """One greedy decode step of every slot at its own position ->
         (next tokens (rung,) int32, caches updated in place). Rows where
-        ``valid`` is False keep their cache rows bit-identical."""
+        ``valid`` is False keep their cache rows bit-identical, also when
+        the step fails part way (an out-of-memory error after some layers
+        wrote their rows)."""
         from repro_torch.train.serve import make_decode_fn
+        self._first_run(("decode", rung, tier))
         index_np = np.asarray(index, np.int64).reshape(rung)
         token_t = self._tensor(token, torch.int32).reshape(rung)
         index_t = self._tensor(index_np, torch.int32)
@@ -180,11 +193,13 @@ class ServeEngine:
                                  torch.int64)
             saved = [(c, c[:, rows, slots].clone())
                      for c in tu.leaves(caches)]
-        out, caches = make_decode_fn(self.task)(
-            self.params_by_tier[tier], caches, token_t, index_t)
-        if saved is not None:
-            for c, old in saved:
-                c[:, rows, slots] = old
+        try:
+            out, caches = make_decode_fn(self.task)(
+                self.params_by_tier[tier], caches, token_t, index_t)
+        finally:
+            if saved is not None:
+                for c, old in saved:
+                    c[:, rows, slots] = old
         self.runs["decode"] += 1
         return out, caches
 
@@ -192,7 +207,7 @@ class ServeEngine:
     def admit(self, rung, tier, caches, slot, batch1):
         """Prefill one request (batch dim 1) and scatter its caches into row
         ``slot`` -> (its first token, caches updated in place)."""
-        del rung
+        self._first_run(("admit", rung, tier))
         batch1 = {k: self._tensor(v, self.input_spec[k].dtype)
                   for k, v in batch1.items()}
         logits, pre = self.task.prefill(self.params_by_tier[tier], batch1)
@@ -202,7 +217,7 @@ class ServeEngine:
 
     @torch.no_grad()
     def repack(self, r_from, r_to, caches, src, valid):
-        del r_from, r_to
+        self._first_run(("repack", r_from, r_to))
         out = repack_caches(caches, self._tensor(src, torch.int64),
                             self._tensor(valid, torch.bool))
         self.runs["repack"] += 1
@@ -213,15 +228,12 @@ class ServeEngine:
         _, peak = measured_peak_bytes(fn, self.device)
         if peak is not None:
             self.measured[key] = peak
-        if key not in self._warmed:
-            self._warmed.add(key)
-            self.compile_count += 1
 
     def warm(self) -> int:
         """Run every path the session can dispatch once on scratch caches:
         decode and admit per (rung, tier), repack per ordered rung pair;
         ``measured`` then holds each path's peak allocated bytes (on the
-        card). Returns the number of paths warmed."""
+        card). Returns ``compile_count``: the paths run so far."""
         for rung in self.rungs:
             zeros = np.zeros((rung,), np.int32)
             prompt = {k: np.zeros(v.shape, np.int64)

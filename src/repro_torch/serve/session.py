@@ -19,8 +19,16 @@ rung, the batched decode caches and a ``ServeEngine``. Each ``step()``:
      empty rows are left bit-identical. The step's wall time feeds the
      (rung, tier) latency table.
 
-The SLO scheduler, chunked prefill, fault plans and OOM recovery raise
-``NotImplementedError`` until the slice that ports them.
+Recovery (the reference's DESIGN.md §13): an out-of-memory error at an
+admit or a decode (``torch.OutOfMemoryError`` from the caching allocator,
+or a ``FaultPlan``'s injected ``serve.step_oom``) poisons the (rung, tier)
+pair and steps the rung down, demotes the tier or sheds a request
+(``_handle_oom``); a shed request is requeued at the front for a fresh
+admission, at most ``max_request_retries`` times, then fails. The
+``serve.latency`` fault adds its seconds to a decode step's recorded time.
+
+The SLO scheduler and chunked prefill raise ``NotImplementedError`` until
+the slice that ports them.
 """
 from __future__ import annotations
 
@@ -34,6 +42,9 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.core.batch_scaler import BatchScaler
 from repro_torch.core.precision import TriAccelConfig
+from repro_torch.resilience.faults import (FaultPlan, is_oom_error,
+                                           release_failed_attempt,
+                                           simulated_oom)
 from repro_torch.serve.batching import Request, RequestQueue, pick_rung
 from repro_torch.serve.engine import ServeEngine
 from repro_torch.serve.scheduler import LatencyTable
@@ -64,6 +75,10 @@ class ServeConfig:
     # per-priority-class p99 decode-step budget (ms); the latency ceiling
     # stops the rung climbing past the tightest budget of any class present
     latency_slo_ms: Optional[Dict[int, float]] = None
+    # OOM-recovery evictions per request before it is failed instead of
+    # requeued: a bounded retry turns a crashed session into per-request
+    # status="failed"
+    max_request_retries: int = 2
 
 
 class ServeSession:
@@ -71,8 +86,8 @@ class ServeSession:
     passes ``device="cpu"``)."""
 
     def __init__(self, task, cfg: Optional[ServeConfig] = None, params=None,
-                 tac: Optional[TriAccelConfig] = None, fault_plan=None,
-                 device="cuda"):
+                 tac: Optional[TriAccelConfig] = None,
+                 fault_plan: Optional[FaultPlan] = None, device="cuda"):
         cfg = cfg if cfg is not None else ServeConfig()
         if cfg.schedule == "slo":
             raise NotImplementedError(f"schedule='slo' {_LATER}")
@@ -81,10 +96,6 @@ class ServeSession:
                              f"(expected 'fifo' or 'slo')")
         if cfg.prefill_chunk:
             raise NotImplementedError(f"prefill_chunk {_LATER}")
-        if fault_plan is not None:
-            raise NotImplementedError(
-                "serving-side fault plans and OOM recovery are not ported "
-                "yet (ROADMAP A11b)")
         self.device = resolve_device(device)
         self.task = as_task(task, self.device)
         self.cfg = cfg
@@ -119,6 +130,9 @@ class ServeSession:
         self.lat_rung: Optional[int] = None
         self.rung_history: List[Tuple[int, int]] = [(0, self.rung)]
         self.tier_history: List[Tuple[int, int]] = [(0, self.tier)]
+        self.fault_plan = fault_plan
+        #: (step, rung, tier, where) per caught out-of-memory error
+        self.oom_events: List[Tuple[int, int, int, str]] = []
 
     # ------------------------------------------------------------- public --
     @property
@@ -268,8 +282,12 @@ class ServeSession:
         active = self._active()
         target = pick_rung(self.engine.rungs, len(active), len(self.queue),
                            self.scaler.microbatch, latency_rung=self.lat_rung)
-        if target == self.rung:
-            return
+        if target != self.rung:
+            self._move_to(target, active)
+
+    def _move_to(self, target: int, active: List[Request]):
+        """Re-batch onto rung ``target``: the ``active`` requests' cache rows
+        move to slots 0.. in order through the repack."""
         src = np.zeros((target,), np.int64)
         valid = np.zeros((target,), bool)
         for j, req in enumerate(active):
@@ -282,21 +300,88 @@ class ServeSession:
         self.rung = target
         self.rung_history.append((self.steps, target))
 
-    def _finish(self, req: Request):
-        req.status = "done"
+    def _finish(self, req: Request, status: str = "done"):
+        req.status = status
         req.finished_step = self.steps
         req.finish_time = time.time()
         if req.slot is not None:
             self.slots[req.slot] = None
             req.slot = None
 
-    def _handle_oom(self, where: str, err: Exception):
-        """The reference steps the rung down, demotes the tier or sheds a
-        request on an out-of-memory error; the port does not recover yet."""
-        raise NotImplementedError(
-            f"out of memory in {where} at rung {self.rung}, tier "
-            f"{self.tier}: serving-side OOM recovery is not ported yet "
-            "(ROADMAP A11b)") from err
+    # ------------------------------------------------------ OOM recovery --
+    def _fail(self, req: Request):
+        """Terminal per-request failure, the bounded retry's end: the
+        session keeps serving and the caller reads status='failed'."""
+        self._finish(req, "failed")
+
+    def _shed(self, req: Request):
+        """Evict ``req`` for OOM recovery: free its slot and requeue it for
+        a fresh admission (the prefill replays, deterministically: same
+        prompt, same weights), or fail it once its retries exceed
+        ``cfg.max_request_retries``."""
+        if req.slot is not None:
+            self.slots[req.slot] = None
+            req.slot = None
+        self.decoded_tokens -= len(req.tokens)   # the replay counts them
+        req.tokens = []
+        req.index = 0
+        req.prefill_pos = 0
+        req.admitted_step = -1
+        req.first_token_step = -1
+        req.first_token_time = 0.0
+        req.retries += 1
+        if req.retries > self.cfg.max_request_retries:
+            self._fail(req)
+        else:
+            self.queue.requeue(req)
+
+    def _handle_oom(self, where: str):
+        """Serve-side OOM recovery: poison the (rung, tier) pair in the
+        measured overlay (never entered again: ``BatchScaler.mark_oom``),
+        then free memory in place: step down to the largest smaller rung
+        (shedding the requests admitted last until the rest fit, their
+        cache rows moved by the repack), or, at the smallest rung, demote
+        to the highest unpoisoned lower tier, or else shed the youngest
+        request. The failed dispatch is retried on the next ``step()``.
+
+        The retry is bitwise what it would have been after an injected
+        fault. A failed admit's request is shed, so its row is rewritten
+        whole at its next admission. A decode writes each valid row's slot
+        ``index % L`` layer by layer, so one that fails after layer k has
+        written that slot in layers < k; the retry writes the same slots
+        with the same keys, values and positions before any layer reads
+        them (``ServeEngine.decode`` restores the invalid rows'). The
+        reference rebuilds caches that a failed dispatch consumed
+        (``_caches_alive``); nothing is donated here, so the caches always
+        survive."""
+        self.oom_events.append((self.steps, self.rung, self.tier, where))
+        self.mm.weight_tier = self.tier
+        self.scaler.mark_oom(self.rung)
+        active = self._active()
+        smaller = [r for r in self.engine.rungs if r < self.rung]
+        def youngest():
+            return max(active, key=lambda r: (r.admitted_step, r.slot or 0))
+        if smaller:
+            target = max(smaller)
+            while len(active) > target:
+                victim = youngest()
+                self._shed(victim)
+                active.remove(victim)
+            self._move_to(target, active)
+            return
+        lower = [t for t in self.engine.tiers if t < self.tier
+                 and (self.rung, t) not in self.mm.poisoned]
+        if lower:
+            self.set_tier(max(lower), lock=self._tier_locked)
+            return
+        if active:    # smallest rung, lowest tier: shed the youngest
+            self._shed(youngest())
+
+    def _step_oom(self, site: str):
+        """Raise the ``serve.step_oom`` fault scheduled for this step."""
+        if self.fault_plan is not None and self.fault_plan.fires(
+                "serve.step_oom", self.steps, rung=self.rung, tier=self.tier):
+            raise simulated_oom(site, self.steps)
 
     def _first_token(self, req: Request, tok0: int):
         req.tokens = [int(tok0)]
@@ -314,15 +399,22 @@ class ServeSession:
             req.slot = s
             req.admitted_step = self.steps
             self.slots[s] = req
-            batch1 = {k: v[None] for k, v in req.inputs.items()}
             try:
+                self._step_oom("serve.admit")
+                batch1 = {k: v[None] for k, v in req.inputs.items()}
                 tok0, self.caches = self.engine.admit(self.rung, self.tier,
                                                       self.caches, s, batch1)
-            except torch.cuda.OutOfMemoryError as e:
-                self._handle_oom("admit", e)
+                tok0 = int(tok0)                  # reads the token: syncs
+            except Exception as e:   # noqa: BLE001 — filtered below
+                if not is_oom_error(e):
+                    raise
+                release_failed_attempt(e, self.device)
+                self._shed(req)
+                self._handle_oom("admit")
+                return
             req.status = "active"
             req.index = self.cfg.prompt_len
-            self._first_token(req, int(tok0))     # reads the token: syncs
+            self._first_token(req, tok0)
 
     def _decode(self):
         if not any(r is not None and r.status == "active"
@@ -336,13 +428,26 @@ class ServeSession:
                 tokens[s], index[s], valid[s] = req.tokens[-1], req.index, True
         t0 = time.time()
         try:
+            self._step_oom("serve.decode")
             out, self.caches = self.engine.decode(self.rung, self.tier,
                                                   self.caches, tokens, index,
                                                   valid)
-        except torch.cuda.OutOfMemoryError as e:
-            self._handle_oom("decode", e)
-        out = out.cpu().numpy()      # waits for the step: its real wall time
-        self.lat.record(self.rung, self.tier, time.time() - t0)
+            out = out.cpu().numpy()  # waits for the step: its real wall time
+        except Exception as e:       # noqa: BLE001 — filtered below
+            if not is_oom_error(e):
+                raise
+            release_failed_attempt(e, self.device)
+            # no token landed and the positions are unchanged: the next
+            # step() retries this decode at the stepped-down (rung, tier)
+            self._handle_oom("decode")
+            return
+        dt = time.time() - t0
+        if self.fault_plan is not None:
+            spike = self.fault_plan.fires("serve.latency", self.steps,
+                                          rung=self.rung, tier=self.tier)
+            if spike is not None:
+                dt += spike.seconds    # as if the step really stalled
+        self.lat.record(self.rung, self.tier, dt)
         for s, req in enumerate(list(self.slots)):
             if req is None or req.status != "active":
                 continue

@@ -41,7 +41,6 @@ from __future__ import annotations
 import dataclasses
 import signal
 import time
-import traceback
 from typing import Any, Dict, List, Optional
 
 import numpy as np
@@ -59,7 +58,9 @@ from repro_torch.core.precision import TriAccelConfig
 from repro_torch.kernels.layout import slab_view
 from repro_torch.optim.optimizers import adamw, sgdm
 from repro_torch.resilience.faults import (FaultPlan, corrupt_checkpoint,
-                                           is_oom_error, simulated_oom)
+                                           is_oom_error,
+                                           release_failed_attempt,
+                                           simulated_oom)
 from repro_torch.resilience.recovery import (DivergenceError,
                                              DivergenceWatchdog,
                                              RecoveryConfig)
@@ -357,7 +358,10 @@ class Trainer:
         (``BatchScaler.mark_oom``), steps down and re-runs the SAME batch,
         at most ``recovery.max_oom_retries`` times; an OOM on the smallest
         rung re-raises after a blocking checkpoint. Every other error
-        propagates at once.
+        propagates at once. Before the retry, ``release_failed_attempt``
+        frees the failed attempt's frames and the allocator's cached blocks,
+        so that the retry's convolutions run the algorithms a fresh run's
+        do.
 
         The reference checks that a failed dispatch did not consume its
         donated state buffers. Here nothing is donated: the step builds new
@@ -387,9 +391,7 @@ class Trainer:
             except Exception as e:          # noqa: BLE001 — filtered below
                 if not is_oom_error(e):
                     raise
-                # the failed attempt's activations are locals of the frames
-                # its traceback holds: drop them before the retry allocates
-                traceback.clear_frames(e.__traceback__)
+                release_failed_attempt(e, self.device)
                 err = e
                 self.oom_events.append((step, rung))
                 if self.scaler.mark_oom(rung) == rung:

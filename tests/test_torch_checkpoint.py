@@ -540,14 +540,14 @@ def test_launcher_resumes_after_sigterm(tmp_path, capsys, monkeypatch,
 
 
 def test_fault_plans_still_raise_by_name():
-    """The ``Trainer`` takes a ``FaultPlan`` (trainer-side resilience is
-    ported); ``ServeSession`` still refuses one by name (ROADMAP A11b)."""
+    """The ``Trainer`` and the ``ServeSession`` take a ``FaultPlan`` and
+    keep it (resilience is ported on both sides)."""
     plan = FaultPlan([Fault("train.sigterm", step=5)])
     task = LMTask(conf._make(*LM, impl="naive"), device="cpu")
     tr = Trainer(task, TriAccelConfig(**TAC), TrainerConfig(**TCFG),
                  device="cpu", fault_plan=plan)
     assert tr.fault_plan is plan and tr.rollback_events == []
-    with pytest.raises(NotImplementedError, match="A11b"):
-        ServeSession(task, ServeConfig(prompt_len=8, total_len=16,
-                                       rungs=(1,), tiers=(1,)),
-                     device="cpu", fault_plan=plan)
+    sess = ServeSession(task, ServeConfig(prompt_len=8, total_len=16,
+                                          rungs=(1,), tiers=(1,)),
+                        device="cpu", fault_plan=plan)
+    assert sess.fault_plan is plan and sess.oom_events == []
