@@ -204,7 +204,30 @@ Phases (any failure raises and the script exits non-zero):
      one's included. Printed beside the card's name
      and power limit: the injected step-down, the tier demotion, a shed
      request's TTFT against an unshed one's, the real OOM's failed admit,
-     its recovery and the retry, the phase's seconds.
+     its recovery and the retry, the phase's seconds;
+ 11. the rest of serving, its seconds printed against a 90 s target:
+     (a) chunked prefill over smollm-135m at full width and depth
+     (``CH_*``): four prompts of 17, 64, 100 and 128 tokens in chunks of
+     16 through a session at rungs 1/2, tiers 0/1, an injected
+     ``serve.step_oom`` failing a chunk at rung 2 (poison, step-down, the
+     youngest shed and replayed), every request done, no path run after
+     ``warm()``, no flash forward and 30 ``flash_decode`` launches a
+     decode step and a prompt token; the 128-token request's tokens
+     against a whole-prompt session's (equal or a near-tie), and the
+     first-token logits and cache rows of whole-prompt against chunked
+     prefill within ``CH_TOL``; two chunk tokens profiled; (b) SLO
+     traffic: ``drive`` over a ``poisson_trace`` of two classes
+     (``SLO_*``) through ``schedule="slo"``, chunk 16, rungs 1/2/4: no
+     path run after ``warm()``, done plus rejected equal to the offered,
+     the launches exact; the class report, TTFT p50/p99 by class, tok/s,
+     the decode step by rung; (c) vision inference: ResNet-18 and
+     EfficientNet-B0 sessions (``VIS_*``: rungs 16/32/64, tiers 2/1/0,
+     gpu ladder, 96 eval images a tier in waves, an injected OOM at
+     "infer") on the card and on the CPU from the same weights and
+     BatchNorm statistics: the same trail, logits within ``VIS_TOL`` by
+     tier, predictions equal but near ties, one one-pass ``qdq_cast`` a
+     floating leaf of the tier-0 set; images/s and the peak bytes by
+     (rung, tier).
 
 A kernel that runs on several main paths at different shapes
 (fused_stats and fused_apply: ResNet-18, EfficientNet-B0 and LM training;
@@ -238,7 +261,11 @@ SIMT kernels (bf16 head dims the tensor-core kernels refuse), timed in
 f32 as before. The ``fused_stats`` and ``fused_apply`` rows carry
 ``fault_path_launches``, their launches on phase 9's fault plan path;
 the ``flash_attention``, ``flash_decode`` and ``qdq_cast`` rows theirs
-on phase 10's serving plan path.
+on phase 10's serving plan path. ``flash_decode@chunked_prefill`` is the
+decode kernel on phase 11's chunk paths (11a and 11b: B 1 a prompt
+token, and their decode steps), timed at B 1 against a 128-slot cache;
+``qdq_cast_one_pass@vision_serve`` the one-pass cast of phase 11c's
+tier-0 vision weight sets, timed over both models' leaves.
 ``qdq_cast`` is the two-pass form the serving path launches,
 ``qdq_cast_one_pass`` the one-pass form the LM path's tier-0 set launches, both timed over the 11 leaves, f32 in
 and bf16 out as those paths cast (``f32_out_*``: the same with f32 out).
@@ -250,7 +277,8 @@ kernel's device time from the profiler
 CUDA events over back-to-back launches, can include the card's waits for
 the host's launches.
 
-The last three lines are the ``kernels`` JSON line, the card's name and
+The whole script's seconds are printed before the last three lines,
+which are the ``kernels`` JSON line, the card's name and
 power limit, and ``{"ok": true, "device": {...}}``. Without a card (or
 outside a checkout of the repository) it exits non-zero and prints no
 result.
@@ -4131,6 +4159,594 @@ def serve_faults_phase(card: str) -> dict:
     return full
 
 
+# ------------------------------------------- phase 11: serving, the rest ---
+#: 11a: the chunked prefill's prompts (lengths), chunk, cache, tokens a
+#: request; the injected OOM's step (rung 2: the first chunk of that step)
+CH_PROMPTS, CH_CHUNK, CH_CACHE, CH_TOKENS, CH_OOM_STEP = (
+    (17, 64, 100, 128), 16, 512, 8, 1)
+#: 11a: the whole-prompt prefill held to the chunked one at these prompt
+#: lengths and tiers (prompts this short take the plain attention in the
+#: prefill: the flash forward's blocks are 256 rows; a prompt token costs
+#: a decode step's host time, so two prompts)
+CH_COMPARE = ((17, 0), (128, 1))
+#: 11a: chunked against whole-prompt, a fraction of the largest magnitude:
+#: first-token logits and the cache rows (K, V) of the prompt's positions.
+#: Both compute in bf16 and sum in other orders (the prefill's attention
+#: over the prompt against one decode per token) through 30 layers; 1.2 to
+#: 1.5 % seen with the plain versions on the CPU at these lengths
+CH_TOL = 5e-2
+#: 11b: the SLO traffic: classes (``TrafficClass`` fields), trace steps,
+#: seed, cache, rungs and the class-0 budget
+SLO_CLASSES = (
+    dict(priority=0, rate=0.15, prompt_lens=(16, 32), new_tokens=(8,),
+         deadline_ms=60_000.0),
+    dict(priority=2, rate=0.1, prompt_lens=(48, 96), new_tokens=(8,),
+         burst_every=8, burst_size=2))
+SLO_STEPS, SLO_SEED, SLO_CACHE, SLO_RUNGS = 24, 11, 128, (1, 2, 4)
+#: 11c: the vision sessions: rungs, tiers, eval images (served in waves of
+#: 16, 32 and 48, so each wave takes its own rung), and the card-vs-CPU
+#: bound on the logits by tier, a fraction of the largest magnitude:
+#: cuDNN's and oneDNN's f32 sums in other orders (tier 2); bf16 layer
+#: outputs rounded after those sums (tiers 1 and 0; 5.5e-3 seen between
+#: the port and the reference on the CPU, tests/test_torch_vision_serve.py)
+VIS_RUNGS, VIS_TIERS, VIS_IMAGES = (16, 32, 64), (2, 1, 0), 96
+VIS_WAVES = (16, 32, 48)
+VIS_TOL = {2: 1e-3, 1: 3e-2, 0: 3e-2}
+#: phase 11's seconds are printed against this target
+PHASE11_TARGET_S = 90.0
+
+
+def _margins(logits: torch.Tensor) -> torch.Tensor:
+    """Top-2 gap of each row of ``logits`` (f32)."""
+    top = torch.topk(logits.float(), 2, dim=-1).values
+    return top[..., 0] - top[..., 1]
+
+
+def _chunk_against_prefill(eng, prompt, tier: int) -> dict:
+    """One prompt through the whole-prompt prefill (``task.prefill``, its
+    caches scattered into a 1-row cache) and through the decode hook one
+    token at a time on a fresh 1-row cache (what ``chunk_admit`` runs):
+    the first-token logits' and the K/V rows' largest gaps over their
+    largest magnitudes, positions equal, argmax equal unless a near-tie."""
+    from repro_torch.serve.engine import scatter_prefill
+    task, params = eng.task, eng.params_by_tier[tier]
+    dev = eng.device
+    toks = torch.as_tensor(prompt, dtype=torch.int32, device=dev)
+    with torch.no_grad():
+        lw, pre = task.prefill(params, {"tokens": toks[None]})
+        cw = scatter_prefill(eng.init_caches(1), pre, 0)
+        cc = eng.init_caches(1)
+        pos = torch.arange(len(prompt), dtype=torch.int32, device=dev)
+        for j in range(len(prompt)):
+            lc, _ = task.decode(params, cc, toks[j:j + 1], pos[j:j + 1])
+    lw, lc = lw[0].float(), lc[0].float()
+    mw, mc = cw["seg0"]["b0"]["mix"], cc["seg0"]["b0"]["mix"]
+    P = len(prompt)
+    out = {"logits": float((lw - lc).abs().max() / lw.abs().max()),
+           "max_logit": float(lw.abs().max())}
+    for key in ("k", "v"):
+        a, b = mw[key][:, :, :P].float(), mc[key][:, :, :P].float()
+        out[key] = float((a - b).abs().max() / a.abs().max())
+    check(torch.equal(mw["pos"], mc["pos"]), f"prompt {P} tier {tier}: "
+          "cache positions differ")
+    out["same_argmax"] = int(lw.argmax()) == int(lc.argmax())
+    out["margin"] = float(_margins(lw))
+    return out
+
+
+def _teacher_margins(eng, prompt, tokens, tier: int) -> list:
+    """The top-2 margin at each generated position of ``tokens``: the
+    decode hook at ``tier``, teacher-forced over ``prompt`` then
+    ``tokens`` on a fresh 1-row cache."""
+    dev = eng.device
+    seq = torch.as_tensor(list(prompt) + list(tokens), dtype=torch.int32,
+                          device=dev)
+    pos = torch.arange(len(seq), dtype=torch.int32, device=dev)
+    cc, out = eng.init_caches(1), []
+    with torch.no_grad():
+        for j in range(len(seq) - 1):
+            logits, _ = eng.task.decode(eng.params_by_tier[tier], cc,
+                                        seq[j:j + 1], pos[j:j + 1])
+            if j >= len(prompt) - 1:
+                out.append((float(_margins(logits[0])),
+                            float(logits[0].float().abs().max())))
+    return out
+
+
+def chunked_prefill_phase(seed: int = 0, device="cuda",
+                          reduced: bool = False) -> dict:
+    """Phase 11a: chunked prefill at smollm-135m's full width and depth.
+    A session with ``prefill_chunk`` ``CH_CHUNK`` (rungs 1/2, tiers 0/1
+    warmed, tier 1 served, cache ``CH_CACHE``) serves four prompts of
+    ``CH_PROMPTS`` tokens; ``serve.step_oom`` at step ``CH_OOM_STEP`` on
+    rung 2 fails the first chunk of that step: rung 2 poisoned, the
+    session steps down, the youngest request shed and replayed. Every
+    request done; no path runs after ``warm()``; the launches exact: no
+    flash forward, ``flash_decode`` 30 a decode step and 30 a prompt token
+    through the chunk path (warm-ups included), the two-pass ``qdq_cast``
+    once a tier-0 leaf. Then a whole-prompt session serves the 128-token
+    prompt: its tokens equal the chunked session's, or first differ where
+    the top-2 margin is within ``CH_TOL`` of the largest logit. Then the
+    first-token logits and the cache rows of each ``CH_COMPARE`` prompt,
+    chunked against whole-prompt, within ``CH_TOL``. -> numbers and
+    launches."""
+    from repro_torch.kernels import ops
+    from repro_torch.models.registry import get_task
+    from repro_torch.resilience import Fault, FaultPlan
+    from repro_torch.serve import ServeConfig, ServeSession
+    dev = torch.device(device)
+    task = get_task("smollm-135m", reduced, device)
+    n_layers, vocab = task.cfg.num_layers, task.cfg.vocab_size
+    rng = np.random.default_rng(seed + 3)
+    prompts = [rng.integers(0, vocab, (n,)) for n in CH_PROMPTS]
+    kw = dict(prompt_len=max(CH_PROMPTS), total_len=CH_CACHE,
+              rungs=(1, 2), tiers=(0, 1), ladder="tpu",
+              max_new_tokens=CH_TOKENS, t_ctrl=4, auto_tier=False, seed=seed)
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    ops.reset_launches()
+    plan = FaultPlan([Fault("serve.step_oom", step=CH_OOM_STEP, rung=2)])
+    sess = ServeSession(task, ServeConfig(prefill_chunk=CH_CHUNK, **kw),
+                        fault_plan=plan, device=device)
+    eng = sess.engine
+    warmed = sess.warm()
+    spans = []
+    if dev.type == "cuda":
+        _timing(eng, "chunk_admit", spans, lambda *a: (sess.steps, a[6]))
+    for p in prompts:
+        sess.submit({"tokens": p})
+    t0 = time.perf_counter()
+    stats = sess.run(max_steps=2000)
+    serve_s = time.perf_counter() - t0
+    launches, runs = dict(ops.LAUNCHES), dict(eng.runs)
+    reqs = sess.results()
+    check(all(r.status == "done" and len(r.tokens) == CH_TOKENS
+              and all(0 <= t < vocab for t in r.tokens)
+              for r in reqs.values()),
+          f"11a statuses {[(r.status, r.tokens) for r in reqs.values()]}")
+    check(sess.compile_count == warmed and stats["warm_s"] == 0.0,
+          f"11a: paths run after warm(): {sess.compile_count - warmed}")
+    check([e[1:] for e in sess.oom_events] == [(2, 1, "chunk")]
+          and sess.oom_events[0][0] == CH_OOM_STEP
+          and (2, 1) in sess.mm.poisoned and sess.rung == 1
+          and sum(r.retries for r in reqs.values()) >= 1,
+          f"11a: the injected chunk OOM: events {sess.oom_events}, rungs "
+          f"{sess.rung_history}, retries "
+          f"{[r.retries for r in reqs.values()]}")
+    check(runs["admit"] == 0 and runs["chunk"] >= len(CH_PROMPTS),
+          f"11a path runs {runs}")
+    prompt_tokens = eng.chunk_tokens
+    if dev.type == "cuda":
+        check(launches["flash_attention"] == 0,
+              f"11a: no flash forward in chunked mode: {launches}")
+        check(launches["flash_decode"]
+              == n_layers * (runs["decode"] + prompt_tokens),
+              f"11a flash_decode launches {launches['flash_decode']} vs "
+              f"{n_layers} x ({runs['decode']} decodes + {prompt_tokens} "
+              "prompt tokens)")
+        check(launches["qdq_cast"] == launches["qdq_cast_two_pass"]
+              == len(_lm_leaves()),
+              f"11a qdq_cast launches {launches} vs the tier-0 leaves")
+    served = sum(CH_PROMPTS) + len(kw["rungs"]) * len(kw["tiers"])
+    check(prompt_tokens >= served, f"11a prompt tokens {prompt_tokens} < "
+          f"{served}")
+    whole = ServeSession(task, ServeConfig(**kw), params=None,
+                         device=device)
+    whole.warm()
+    w = whole.submit({"tokens": prompts[-1]})
+    whole.run(max_steps=200)
+    got, want = reqs[len(prompts) - 1].tokens, whole.results()[w].tokens
+    margins = None
+    if got != want:
+        margins = _teacher_margins(eng, prompts[-1], got, 1)
+        pos = next(i for i, (a, b) in enumerate(zip(got, want)) if a != b)
+        m, top = margins[pos]
+        check(m <= CH_TOL * top, f"11a: whole-prompt tokens {want} against "
+              f"chunked {got}: first differ at {pos}, margin {m} > "
+              f"{CH_TOL} x {top}")
+    del whole
+    cmp = {}
+    for P, tier in CH_COMPARE:
+        prompt = rng.integers(0, vocab, (P,))
+        r = _chunk_against_prefill(eng, prompt, tier)
+        check(max(r["logits"], r["k"], r["v"]) <= CH_TOL
+              and (r["same_argmax"] or r["margin"]
+                   <= CH_TOL * r["max_logit"]),
+              f"11a chunked against whole-prompt, prompt {P} tier {tier}: "
+              f"{r}")
+        cmp[(P, tier)] = r
+    chunk_ms = [ms for _, ms, ok in spans if ok]
+    per_token = (sum(chunk_ms) / sum(k[1] for k, _, ok in spans if ok)
+                 if chunk_ms else None)
+    return dict(launches=launches, runs=runs, prompt_tokens=prompt_tokens,
+                oom=list(sess.oom_events), rungs=list(sess.rung_history),
+                retries=[r.retries for r in reqs.values()],
+                tokens=(got, want), margins=margins, compare=cmp,
+                serve_s=serve_s, tok_s=stats["tok_s"], chunk_ms=chunk_ms,
+                per_token_ms=per_token, ttft=_ttft_ms(list(reqs.values())),
+                sess=sess)
+
+
+def slo_traffic_phase(seed: int = 0, device="cuda",
+                      reduced: bool = False) -> dict:
+    """Phase 11b: SLO traffic replayed at smollm-135m's full width and
+    depth: ``schedule="slo"``, ``prefill_chunk`` 16, rungs ``SLO_RUNGS``,
+    tier 1, cache ``SLO_CACHE``, class 0's step budget 60 s; ``drive``
+    over ``poisson_trace(SLO_CLASSES, SLO_STEPS, seed=SLO_SEED)``. No path
+    runs after ``warm()`` (``warm_s`` 0.0); completed plus rejected equal
+    the offered requests; the launches exact (``flash_decode`` 30 a decode
+    step and 30 a prompt token through the chunk path, no flash forward,
+    no cast at tier 1). -> the report and the numbers."""
+    from repro_torch.kernels import ops
+    from repro_torch.models.registry import get_task
+    from repro_torch.serve import (ServeConfig, ServeSession, TrafficClass,
+                                   drive, poisson_trace)
+    dev = torch.device(device)
+    task = get_task("smollm-135m", reduced, device)
+    n_layers, vocab = task.cfg.num_layers, task.cfg.vocab_size
+    cfg = ServeConfig(prompt_len=16, total_len=SLO_CACHE, rungs=SLO_RUNGS,
+                      tiers=(1,), schedule="slo", prefill_chunk=16,
+                      latency_slo_ms={0: 60_000.0}, t_ctrl=4, seed=seed)
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    ops.reset_launches()
+    sess = ServeSession(task, cfg, device=device)
+    warmed = sess.warm()
+    trace = poisson_trace([TrafficClass(**c) for c in SLO_CLASSES],
+                          SLO_STEPS, seed=SLO_SEED)
+    rep = drive(sess, trace, vocab=vocab, seed=SLO_SEED)
+    launches, runs = dict(ops.LAUNCHES), dict(sess.engine.runs)
+    reqs = list(sess.results().values())
+    done = [r for r in reqs if r.status == "done"]
+    check(rep["compile_count"] == warmed and rep["warm_s"] == 0.0,
+          f"11b: paths run after warm(): {rep['compile_count'] - warmed}")
+    check(len(done) + rep["rejected"] == rep["offered"] == len(trace)
+          and done, f"11b: {len(done)} done + {rep['rejected']} rejected "
+          f"!= {rep['offered']} offered")
+    check(all(len(r.tokens) == r.max_new_tokens for r in done),
+          "11b: every done request has its tokens")
+    if dev.type == "cuda":
+        check(launches["flash_attention"] == 0 and launches["qdq_cast"] == 0
+              and launches["flash_decode"] == n_layers * (
+                  runs["decode"] + sess.engine.chunk_tokens),
+              f"11b launches {launches} vs {n_layers} x ({runs['decode']} "
+              f"decodes + {sess.engine.chunk_tokens} prompt tokens)")
+    ttft = {}
+    for c in sorted({r.priority for r in done}):
+        xs = [(r.first_token_time - r.submit_time) * 1e3 for r in done
+              if r.priority == c]
+        ttft[c] = (float(np.percentile(xs, 50)), float(np.percentile(xs, 99)))
+    step_ms = {r: float(np.median(sess.lat.samples(r, 1))) * 1e3
+               for r in SLO_RUNGS if sess.lat.samples(r, 1)}
+    return dict(report=rep, launches=launches, runs=runs, ttft=ttft,
+                step_ms=step_ms, prompt_tokens=sess.engine.chunk_tokens,
+                offered=len(trace))
+
+
+def _calibrated(arch: str, seed: int):
+    """A vision model's seeded weights and BatchNorm statistics from four
+    train-mode forwards of 64 training images (so inference normalizes by
+    real statistics), on the CPU."""
+    from repro_torch.models.registry import get_task
+    from repro_torch.models.vision import vision_apply
+    task = get_task(arch, device="cpu")
+    params, aux = task.init(torch.Generator().manual_seed(seed))
+    stream = task.data_stream(64, seed=seed)
+    with torch.no_grad():
+        for i in range(4):
+            _, aux = vision_apply(params, aux, stream.batch(i)["images"],
+                                  True, task.cfg)
+    images = task.eval_stream(VIS_IMAGES, seed=seed).batch(0)["images"]
+    return params, aux, images.numpy()
+
+
+def _vision_session(arch, params, aux, images, device, seed):
+    """One device's vision session: warmed, then per tier (2, 1, 0, pinned)
+    the eval images in waves of ``VIS_WAVES``; then, at tier 1, an injected
+    ``serve.step_oom`` on rung 64 fails the inference of a 48-image wave:
+    the wave shed, rung 64 poisoned, the rest served at 32 and 16. ->
+    predictions by tier, the logits of every image by tier (through the
+    engine afterwards), the trail, launches, timings."""
+    from repro_torch import tree as tu
+    from repro_torch.kernels import ops
+    from repro_torch.models.registry import get_task
+    from repro_torch.resilience import Fault, FaultPlan
+    from repro_torch.serve import ServeConfig, ServeSession
+    dev = torch.device(device)
+    task = get_task(arch, device=device)
+    p = tu.tree_map(lambda x: x.to(dev), params)
+    a = tu.tree_map(lambda x: x.to(dev), aux)
+    ops.reset_launches()
+    sess = ServeSession(task, ServeConfig(
+        rungs=VIS_RUNGS, tiers=VIS_TIERS, ladder="gpu", t_ctrl=1,
+        auto_tier=False, seed=seed), params=p, aux_state=a, device=device)
+    cast = dict(ops.LAUNCHES)
+    warmed = sess.warm()
+    preds = {}
+    for tier in VIS_TIERS:
+        sess.set_tier(tier)
+        first = len(sess.requests)
+        i = 0
+        for n in VIS_WAVES:
+            for x in images[i:i + n]:
+                sess.submit({"images": x})
+            i += n
+            sess.run()
+        preds[tier] = [sess.requests[first + j].result
+                       for j in range(len(images))]
+    sess.set_tier(1)
+    plan = FaultPlan([Fault("serve.step_oom", step=sess.steps, rung=64)])
+    sess.fault_plan = plan
+    first = len(sess.requests)
+    for x in images[:48]:
+        sess.submit({"images": x})
+    sess.run()
+    reqs = list(sess.requests.values())
+    served = dict(ops.LAUNCHES)
+    check(sess.compile_count == warmed, f"{arch} on {device}: paths run "
+          f"after warm(): {sess.compile_count - warmed}")
+    check(all(r.status == "done" and 0 <= r.result < 10 for r in reqs),
+          f"{arch} on {device}: statuses")
+    oom = list(sess.oom_events)
+    check([e[1:] for e in oom] == [(64, 1, "infer")]
+          and all(r.retries == 1 for r in reqs[first:])
+          and (64, 1) in sess.mm.poisoned,
+          f"{arch} on {device}: the injected infer OOM: {oom}, retries "
+          f"{[r.retries for r in reqs[first:]]}")
+    trail = dict(oom=oom, rungs=list(sess.rung_history),
+                 tiers=list(sess.tier_history),
+                 poisoned=sorted(sess.mm.poisoned),
+                 log=[(s, st) for s, st, _ in plan.log],
+                 retries=[r.retries for r in reqs])
+    eng = sess.engine
+    logits = {}
+    for tier in VIS_TIERS:
+        out = [eng.infer(64, tier, {"images": images[:64]})[1],
+               eng.infer(32, tier, {"images": images[64:]})[1]]
+        logits[tier] = torch.cat(out).float().cpu()
+    ips, peak = {}, {}
+    if dev.type == "cuda":
+        for r in VIS_RUNGS:
+            for tier in VIS_TIERS:
+                batch = {"images": images[:r]}
+                ips[(r, tier)] = r / time_ms(
+                    lambda: eng.infer(r, tier, batch), iters=2, reps=3) * 1e3
+                peak[(r, tier)] = eng.measured.get(("infer", r, tier))
+    return dict(preds=preds, logits=logits, trail=trail, cast=cast,
+                served=served, ips=ips, peak=peak,
+                leaves=sum(1 for x in tu.leaves(params)
+                           if x.is_floating_point()))
+
+
+def vision_serve_phase(seed: int = 0, device="cuda") -> dict:
+    """Phase 11c: ResNet-18 and EfficientNet-B0 through ``ServeSession``
+    (rungs ``VIS_RUNGS``, tiers ``VIS_TIERS``, gpu ladder), on the card and
+    on the CPU (the port's plain path) from the same weights and BatchNorm
+    statistics (``_calibrated``): the same trail; at each tier the logits
+    of the ``VIS_IMAGES`` eval images within ``VIS_TOL`` and the
+    predictions equal wherever the CPU's top-2 margin exceeds that bound;
+    the one-pass ``qdq_cast`` launched once a floating leaf of the tier-0
+    set (at the session's construction) and nothing else. -> numbers."""
+    out = {}
+    for arch in ("resnet18", "efficientnet_b0"):
+        t0 = time.perf_counter()
+        params, aux, images = _calibrated(arch, seed)
+        t1 = time.perf_counter()
+        card = _vision_session(arch, params, aux, images, device, seed)
+        t2 = time.perf_counter()
+        cpu = _vision_session(arch, params, aux, images, "cpu", seed)
+        secs = (t1 - t0, t2 - t1, time.perf_counter() - t2)
+        check(card["trail"] == cpu["trail"], f"{arch}: trail on the card "
+              f"{card['trail']} against the CPU's {cpu['trail']}")
+        gaps = {}
+        for tier in VIS_TIERS:
+            lc, lw = card["logits"][tier], cpu["logits"][tier]
+            scale = float(lw.abs().max())
+            gaps[tier] = float((lc - lw).abs().max()) / scale
+            check(gaps[tier] <= VIS_TOL[tier], f"{arch} tier {tier}: card "
+                  f"logits {gaps[tier]} of the largest from the CPU's")
+            sure = _margins(lw) > VIS_TOL[tier] * scale
+            pc = torch.tensor(card["preds"][tier])
+            pw = torch.tensor(cpu["preds"][tier])
+            check(bool((pc == pw)[sure].all())
+                  and bool((pw == lw.argmax(-1))[sure].all()),
+                  f"{arch} tier {tier}: predictions differ where the CPU's "
+                  "margin is clear")
+        if torch.device(device).type == "cuda":
+            n = card["leaves"]
+            check(card["cast"]["qdq_cast"] == card["cast"][
+                "qdq_cast_one_pass"] == n and card["served"] == card["cast"],
+                  f"{arch}: qdq_cast launches {card['cast']} / "
+                  f"{card['served']} vs {n} floating leaves (one-pass)")
+        out[arch] = dict(card=card, gaps=gaps, secs=secs,
+                         classes=len(set(cpu["preds"][1])))
+    return out
+
+
+def serve_rest_phase(card: str) -> dict:
+    """Phase 11: 11a, 11b, 11c and their numbers beside the card's name
+    and power limit. -> the launches by path."""
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    ch = chunked_prefill_phase()
+    t_a = time.perf_counter() - t0
+    sess = ch.pop("sess")
+    eng = sess.engine
+    rng = np.random.default_rng(21)
+    chunk = rng.integers(0, sess.task.cfg.vocab_size, (CH_CHUNK,))
+    caches = eng.init_caches(1)
+    # two lanes of a chunk: the profiler's own cost grows with the events
+    _profile(lambda: eng.chunk_admit(1, 1, caches, 0, chunk, 0, 2, True),
+             2, _serve_family, f"a chunk at B 1, per prompt token (30 "
+             f"layers, cache {CH_CACHE}; 2 tokens)")
+    del sess, eng, caches
+    cmp = ", ".join(f"{P}/t{t}: logits {r['logits']:.4f}, K {r['k']:.4f}, "
+                    f"V {r['v']:.4f}"
+                    for (P, t), r in ch["compare"].items())
+    got, want = ch["tokens"]
+    log(f"serving, chunked prefill (11a), smollm-135m (30 layers), prompts "
+        f"{CH_PROMPTS}, chunk {CH_CHUNK}, cache {CH_CACHE} ({card}): "
+        f"{ch['prompt_tokens']} prompt tokens through the chunk path "
+        f"(warm-ups included), path runs {ch['runs']}, launches "
+        f"{ {k: v for k, v in ch['launches'].items() if v} }; injected OOM "
+        f"{ch['oom']}, rungs {ch['rungs']}, retries {ch['retries']}; "
+        f"{ch['tok_s']:.1f} tok/s, TTFT shed {ch['ttft']['shed']} / unshed "
+        f"{ch['ttft']['unshed']} ms; a chunk's host time "
+        f"{statistics.median(ch['chunk_ms']):.3f} ms (median of "
+        f"{len(ch['chunk_ms'])}), {ch['per_token_ms']:.3f} ms a prompt "
+        f"token")
+    log(f"  chunked against whole-prompt (gap / largest, bound {CH_TOL}): "
+        f"{cmp}; the 128-token request's tokens chunked {got}, "
+        f"whole-prompt {want}"
+        + ("" if ch["margins"] is None else "; top-2 margins along the "
+           f"chunked tokens {[round(m, 4) for m, _ in ch['margins']]}"))
+    t0 = time.perf_counter()
+    slo = slo_traffic_phase()
+    t_b = time.perf_counter() - t0
+    rep = slo["report"]
+    log(f"serving, SLO traffic (11b), smollm-135m (30 layers), rungs "
+        f"{SLO_RUNGS}, cache {SLO_CACHE}, chunk 16, trace of {SLO_STEPS} "
+        f"steps (seed {SLO_SEED}), {slo['offered']} offered ({card}): "
+        f"{rep['steps']} steps, {rep['decoded_tokens']} tokens, "
+        f"{rep['tok_s']:.1f} tok/s, rejected {rep['rejected']}, rung "
+        f"history {rep['rung_history']}; TTFT ms p50/p99 by class "
+        f"{ {c: (round(a, 1), round(b, 1)) for c, (a, b) in slo['ttft'].items()} }"
+        f"; decode step ms by rung (median) "
+        f"{ {r: round(v, 3) for r, v in slo['step_ms'].items()} }; "
+        f"launches {slo['launches']['flash_decode']} flash_decode for "
+        f"{slo['runs']['decode']} decodes and {slo['prompt_tokens']} prompt "
+        f"tokens")
+    log(f"  class_report {json.dumps(rep['classes'])}")
+    t0 = time.perf_counter()
+    vis = vision_serve_phase()
+    t_c = time.perf_counter() - t0
+    for arch, v in vis.items():
+        c = v["card"]
+        log(f"serving, vision (11c), {arch}, rungs {VIS_RUNGS}, tiers "
+            f"{VIS_TIERS}, {VIS_IMAGES} eval images a tier ({card}): card "
+            f"against CPU logits (gap / largest) "
+            f"{ {t: round(g, 6) for t, g in v['gaps'].items()} }, "
+            f"{v['classes']} classes predicted at tier 1; trail "
+            f"{c['trail']['oom']}, rungs {c['trail']['rungs']}; qdq_cast "
+            f"(one-pass) {c['cast']['qdq_cast_one_pass']} for {c['leaves']} "
+            f"leaves; images/s by (rung, tier) "
+            f"{ {k: round(x, 1) for k, x in c['ips'].items()} }; peak bytes "
+            f"by (rung, tier) {c['peak']}; seconds: the weights and "
+            f"statistics on the CPU {v['secs'][0]:.1f}, the card's session "
+            f"{v['secs'][1]:.1f}, the CPU's {v['secs'][2]:.1f}")
+    total = time.perf_counter() - t_phase
+    # a target, not a check: 11a and 11b run ~900 prompt tokens, each a
+    # host-bound decode step whose time moves with the host (PERF.md §5)
+    log(f"phase 11 in {total:.1f} s (target {PHASE11_TARGET_S:.0f} s; 11a "
+        f"{t_a:.1f}, 11b {t_b:.1f}, 11c {t_c:.1f})")
+    return dict(chunk=ch["launches"], slo=slo["launches"],
+                vision=sum(v["card"]["cast"]["qdq_cast_one_pass"]
+                           for v in vis.values()))
+
+
+# ----------------------------- phase 11 kernels: the new paths' shapes ---
+def _vision_leaves():
+    """The floating leaves of ResNet-18's and EfficientNet-B0's
+    parameters, as shapes."""
+    from repro_torch import tree as tu
+    from repro_torch.models.vision import VisionConfig, vision_init
+    out = []
+    for arch in ("resnet18", "efficientnet_b0"):
+        params, _ = vision_init(torch.Generator(), VisionConfig(arch),
+                                device="meta")
+        out += [tuple(x.shape) for x in tu.leaves(params)
+                if x.is_floating_point()]
+    return out
+
+
+def check_qdq_vision(dev, bw, ops_rate) -> dict:
+    """qdq_cast bitwise against its plain version at every floating leaf
+    of ResNet-18 and EfficientNet-B0 (the vision sessions' tier-0 weight
+    sets), both forms (two-pass: the tpu ladder without an absmax;
+    one-pass: the gpu ladder, the sessions' own), f32 and bf16 out; the
+    one-pass form timed over both models' leaves, f32 in and bf16 out as
+    the sessions cast, beside the plain version and the byte bound. -> the
+    ``kernels`` line's row ``qdq_cast_one_pass@vision_serve``."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import qdq_cast as qc
+    gen = torch.Generator(device=dev).manual_seed(8)
+    xs = [torch.randn(s, generator=gen, device=dev) * 0.1
+          for s in _vision_leaves()]
+    err = 0.0
+    for x in xs:
+        for ladder, form in (("tpu", "two_pass"), ("gpu", "one_pass")):
+            check(qc.form(0, ladder, None) == form, f"{ladder}: {form}")
+            for out_dtype in (torch.float32, torch.bfloat16):
+                got = ops.qdq_cast(x, 0, ladder, out_dtype=out_dtype)
+                want = qc.qdq_cast_ref(x, 0, ladder, out_dtype=out_dtype)
+                check(same(got, want), f"qdq_cast vision leaf "
+                      f"{tuple(x.shape)} {ladder} {out_dtype}")
+                err = max(err, abs_err(got, want))
+    bf = torch.bfloat16
+    run = lambda: [ops.qdq_cast(x, 0, "gpu", out_dtype=bf)  # noqa: E731
+                   for x in xs]
+    ms, dms = time_ms(run, iters=5), device_ms(run, iters=5)
+    plain_ms = time_ms(lambda: [qc.qdq_cast_ref(x, 0, "gpu", out_dtype=bf)
+                                for x in xs], iters=2, reps=3)
+    elems = sum(x.numel() for x in xs)
+    b_ms, by = bound(6.0 * elems, 6.0 * elems, bw, ops_rate)
+    log(f"qdq_cast at the vision leaves ({len(xs)} leaves, {elems} "
+        f"weights; ResNet-18 and EfficientNet-B0): both forms bitwise the "
+        f"plain version; one-pass, f32 in, bf16 out: {ms:.4f} ms by events "
+        f"(device {dms:.4f}), plain {plain_ms:.4f}, bound {b_ms:.5f} ({by})")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": by, "library_ms": None,
+            "device_ms": dms}
+
+
+def check_decode_chunk(dev, bw, tc_rate) -> dict:
+    """flash_decode at the chunk path's shape: B 1, one live row of ragged
+    length (1 to the cache's), against caches of 128, 512 and 2048 slots
+    (phases 11b, 11a and 5b), 9/3 heads of 64, f32 and bf16, within
+    ``tolerance``; a bitwise repeat; timed at B 1 against the 128-slot
+    bf16 cache with 65 live slots (a prompt token of 11b's second chunk)
+    beside the plain version, SDPA with a length mask and the byte bound.
+    -> the ``kernels`` line's row ``flash_decode@chunked_prefill``."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    gen = torch.Generator(device=dev).manual_seed(9)
+    H, K, D = 9, 3, 64
+    err, n = 0.0, 0
+    for dtype in (torch.float32, torch.bfloat16):
+        for L in (128, 512, 2048):
+            for length in (1, 2, 15, 16, 17, 65, 100, 128, L - 1, L):
+                q, k, v = _decode_inputs(1, L, H, K, D, D, dtype, dev, gen)
+                lens = torch.tensor([length], dtype=torch.int32, device=dev)
+                got = ops.flash_decode(q, k, v, lens)
+                err = max(err, close(got, fa.flash_decode_ref(q, k, v, lens),
+                                     f"decode B1 L{L} length {length} "
+                                     f"{dtype}"))
+                check(same(got, ops.flash_decode(q, k, v, lens)),
+                      f"decode B1 L{L} length {length}: a bitwise repeat")
+                n += 1
+    L, length = SLO_CACHE, 65
+    q, k, v = _decode_inputs(1, L, H, K, D, D, torch.bfloat16, dev, gen)
+    lens = torch.tensor([length], dtype=torch.int32, device=dev)
+    fn = lambda: ops.flash_decode(q, k, v, lens)  # noqa: E731
+    ms, dms = time_ms(fn, iters=50), device_ms(fn)
+    plain_ms = time_ms(lambda: fa.flash_decode_ref(q, k, v, lens), iters=10)
+    mask = (torch.arange(L, device=dev)[None, :] < lens[:, None]
+            ).reshape(1, 1, 1, L)
+    lib_ms = time_ms(lambda: _sdpa(q, k, v, attn_mask=mask), iters=50)
+    nbytes = 2 * (2 * H * D + 2 * length * K * D) + 4
+    b_ms, by = bound(nbytes, length * H * 4 * D, bw, tc_rate)
+    log(f"flash_decode at the chunk path's shape: {n} variants (B 1, caches "
+        f"128/512/2048, ragged lengths) within tolerance (max|err| "
+        f"{err:.3g}); B1 L{L} {length} live, bf16: kernel {ms:.5f} ms "
+        f"(device {dms:.5f}), plain {plain_ms:.4f}, sdpa {lib_ms:.4f}, "
+        f"bound {b_ms:.6f} ({by})")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": by, "library_ms": lib_ms,
+            "device_ms": dms}
+
+
 #: the checks that run in a process of their own (``in_child``)
 CHILDREN = {"train-real-oom": real_oom, "serve-real-oom": serve_real_oom}
 
@@ -4160,6 +4776,7 @@ def main() -> int:
         print(json.dumps(CHILDREN[args.child](), default=str), flush=True)
         return 0
 
+    t_script = time.perf_counter()
     card = card_line()
     name = torch.cuda.get_device_name(0)
     bw, f32_ops, tc_ops, tf32_ops = peaks(name)
@@ -4209,8 +4826,10 @@ def main() -> int:
         lm_view, dev, bw, f32_ops, what="smollm-135m", **lm_var)
     del lm_view
     res.update(check_qdq(dev, bw, f32_ops))
+    res["qdq_cast_one_pass@vision_serve"] = check_qdq_vision(dev, bw, f32_ops)
     res.update(check_flash(dev, bw, f32_ops, tc_ops, tf32_ops))
     res["flash_decode"] = check_decode(dev, bw, tc_ops)
+    res["flash_decode@chunked_prefill"] = check_decode_chunk(dev, bw, tc_ops)
     delta_err = check_delta(dev)
     res.update(check_flash_bwd(dev, bw, f32_ops, tc_ops, tf32_ops))
     res["flash_attention_bwd_delta"]["max_abs_err"] = max(
@@ -4340,6 +4959,15 @@ def main() -> int:
     full = serve_faults_phase(card)
     for k in ("flash_attention", "flash_decode", "qdq_cast"):
         res[k]["fault_path_launches"] = full["launches"][k]
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the rest of serving: chunked prefill, SLO traffic, vision inference,
+    # each path with its counts read around it
+    rest = serve_rest_phase(card)
+    launches["flash_decode@chunked_prefill"] = (
+        rest["chunk"]["flash_decode"] + rest["slo"]["flash_decode"])
+    launches["qdq_cast_one_pass@vision_serve"] = rest["vision"]
 
     rows = [{"name": rname, "route": "cuda", "source": src,
              "replaces": replaces, "launches": launches[rname],
@@ -4348,6 +4976,7 @@ def main() -> int:
             for rname in res if rname.split("@")[0] == kname]
     check(len(rows) == len(res) and {r["name"].split("@")[0] for r in rows}
           == set(KERNELS), "a row for every kernel and every result")
+    log(f"chip_smoke.py in {time.perf_counter() - t_script:.1f} s")
     print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -81,11 +81,12 @@ def bn_init(c: int, device="cpu"):
 
 
 def bn_apply(p, s, x, train: bool, momentum: float):
-    """BatchNorm over the N, H, W axes of an NHWC tensor, in f32. Train
-    mode normalizes by the batch statistics and returns running stats
-    updated as ``momentum * old + (1 - momentum) * batch`` (biased
-    variance); eval mode uses the running stats and returns them as is."""
-    xf = x.float()
+    """BatchNorm over the N, H, W axes of an NHWC tensor, in f32 (f64 for
+    an f64 input). Train mode normalizes by the batch statistics and
+    returns running stats updated as ``momentum * old + (1 - momentum) *
+    batch`` (biased variance); eval mode uses the running stats and returns
+    them as is."""
+    xf = x.to(torch.promote_types(x.dtype, torch.float32))
     if train:
         mu = xf.mean(dim=(0, 1, 2))
         d = xf - mu
@@ -98,7 +99,7 @@ def bn_apply(p, s, x, train: bool, momentum: float):
         mu, var = s["mean"], s["var"]
         new_s = s
     inv = torch.rsqrt(var + 1e-5)
-    y = (xf - mu) * inv * p["scale"].float() + p["bias"].float()
+    y = (xf - mu) * inv * p["scale"].to(xf.dtype) + p["bias"].to(xf.dtype)
     return y.to(x.dtype), new_s
 
 

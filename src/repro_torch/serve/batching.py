@@ -66,8 +66,8 @@ class Request:
 
 
 class RequestQueue:
-    """FIFO queue with stable ids — the degenerate admission policy (the
-    priority/deadline-aware SLO scheduler comes with its slice)."""
+    """FIFO queue with stable ids — the degenerate admission policy
+    (priority/deadline-aware admission lives in ``serve.scheduler``)."""
 
     def __init__(self):
         self._q: collections.deque = collections.deque()

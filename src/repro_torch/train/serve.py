@@ -1,16 +1,17 @@
-"""Task-level serving steps, as ``repro/train/serve.py``: greedy prefill
-and single-token greedy decode over a task's serving hooks."""
+"""Task-level serving steps, as ``repro/train/serve.py``: greedy prefill,
+single-token greedy decode and cache-free batched inference over a task's
+serving hooks."""
 from __future__ import annotations
 
 import torch
 
-from repro_torch.train.task import task_for_config
+from repro_torch.train.task import TrainTask, task_for_config
 
 
-def as_task(task_or_cfg, device="cuda"):
+def as_task(task_or_cfg, device="cuda") -> TrainTask:
     """A task as given, or a bare model config wrapped in its task on
     ``device``."""
-    if hasattr(task_or_cfg, "serves_tokens"):
+    if isinstance(task_or_cfg, TrainTask):
         return task_or_cfg
     return task_for_config(task_or_cfg, device)
 
@@ -31,3 +32,12 @@ def make_decode_fn(task_or_cfg, device="cuda"):
         logits, caches = task.decode(params, caches, token, index)
         return torch.argmax(logits, dim=-1).to(torch.int32), caches
     return decode
+
+
+def make_infer_fn(task_or_cfg, device="cuda"):
+    task = as_task(task_or_cfg, device)
+
+    def infer(params, aux_state, batch):
+        logits = task.infer(params, aux_state, batch)
+        return torch.argmax(logits, dim=-1).to(torch.int32), logits
+    return infer

@@ -16,11 +16,16 @@ reach the stack) and the serving hooks that ``repro_torch.serve`` drives:
     decode(params, caches, token, index)  -> (logits, caches), in place
     serve_input_spec(prompt_len)          one request's input shapes
     serve_memory_model(params, total_len) weights + decode-cache bytes
+
+while ``VisionTask`` serves through cache-free batched inference
+(``infer(params, aux_state, batch)``); ``serves_tokens`` tells the two
+apart. Both derive from ``TrainTask``, whose serving hooks raise for a
+task that lacks them, as the reference's base does.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, NamedTuple, Tuple
+from typing import Any, Dict, NamedTuple, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -55,14 +60,18 @@ def apply_codes(params, codes, qdq_fn, keys):
             for i, k in enumerate(keys)}
 
 
-@dataclasses.dataclass
-class VisionTask:
-    """The paper's testbed on ``device`` (``cuda`` unless the caller passes
-    ``device="cpu"``)."""
-    cfg: VisionConfig
-    device: Any = "cuda"
-    #: cache-free batched inference (``infer``), not yet ported
-    serves_tokens = False
+class TrainTask:
+    """The base of the tasks (``cfg`` and ``device`` fields in each
+    subclass): the static hooks they share and the reference's serving
+    defaults. A task that serves tokens overrides ``init_cache``/
+    ``prefill``/``decode``; a cache-free one sets ``serves_tokens`` False
+    and overrides ``infer``; the hooks it lacks raise."""
+
+    cfg: Any
+    device: Any
+    #: True -> the task serves through init_cache/prefill/decode; False ->
+    #: cache-free batched inference through ``infer``
+    serves_tokens: bool = True
 
     def __post_init__(self):
         self.device = resolve_device(self.device)
@@ -74,6 +83,62 @@ class VisionTask:
     @property
     def compute_dtype(self):
         return self.cfg.compute_dtype
+
+    def tokens_per_sample(self, seq_len: int) -> int:
+        """Activation tokens per batch element (the memory model's)."""
+        return seq_len
+
+    def loss_codes(self, codes: torch.Tensor) -> torch.Tensor:
+        """The slice of the (L,) control codes the loss consumes."""
+        return codes
+
+    def eval_stream(self, global_batch, seed=0):
+        """Held-out stream (the train stream unless overridden)."""
+        return self.data_stream(global_batch, seed)
+
+    # --------------------------------------------------------- serving ----
+    def init_cache(self, batch, total_len: int, dtype=torch.bfloat16,
+                   device=None):
+        raise NotImplementedError(f"{type(self).__name__} has no decode "
+                                  f"cache")
+
+    def prefill(self, params, batch):
+        raise NotImplementedError(f"{type(self).__name__} does not prefill")
+
+    def decode(self, params, caches, token, index):
+        raise NotImplementedError(f"{type(self).__name__} does not decode")
+
+    def infer(self, params, aux_state, batch):
+        raise NotImplementedError(f"{type(self).__name__} does not infer")
+
+    def serve_input_spec(self, prompt_len: int) -> Dict[str, TensorSpec]:
+        """Shapes and dtypes of ONE request's inputs (leading dim 1)."""
+        raise NotImplementedError(f"{type(self).__name__} does not serve")
+
+    def serve_memory_model(self, params, total_len: int, mesh_size: int = 1,
+                           ladder: str = "tpu", weight_tier: int = 1,
+                           spec_len: int = 1, **kw):
+        """Weights at the active tier + decode-cache bytes per slot."""
+        from repro_torch.core.batch_scaler import ServeMemoryModel
+        n = sum(int(x.numel()) for x in tu.leaves(params))
+        cache = self.init_cache(self.serve_input_spec(spec_len), total_len,
+                                device="meta")
+        per_seq = float(sum(x.numel() * x.element_size()
+                            for x in tu.leaves(cache)))
+        return ServeMemoryModel(
+            param_count=n / mesh_size, opt_slots=0,
+            act_bytes_per_token_layer=per_seq / max(total_len, 1),
+            num_layers=1, fixed_overhead=128e6, ladder=ladder,
+            weight_tier=weight_tier)
+
+
+@dataclasses.dataclass
+class VisionTask(TrainTask):
+    """The paper's testbed on ``device`` (``cuda`` unless the caller passes
+    ``device="cpu"``)."""
+    cfg: VisionConfig
+    device: Any = "cuda"
+    serves_tokens = False
 
     def init(self, gen: torch.Generator, device=None):
         """-> (params, aux_state); ``device`` overrides the task's (e.g.
@@ -97,9 +162,6 @@ class VisionTask:
 
     def tokens_per_sample(self, seq_len: int) -> int:
         return 1
-
-    def loss_codes(self, codes: torch.Tensor) -> torch.Tensor:
-        return codes
 
     def data_stream(self, global_batch, seed=0, seq_len: int = 1):
         return CIFARLikeStream(num_classes=self.cfg.num_classes,
@@ -128,33 +190,47 @@ class VisionTask:
         """Scalar loss for the §3.2 curvature probes (no loss scale)."""
         return self.loss(params, aux_state, batch, None, None)[0]
 
+    # --------------------------------------------------------- serving ----
+    @torch.no_grad()
+    def infer(self, params, aux_state, batch):
+        """Batched inference logits, BN in inference mode (running stats
+        untouched). The images are cast to the weights' container dtype,
+        so the forward computes at the serving tier's width (f32 images
+        would promote a bf16 weight set back to f32); logits in f32."""
+        cd = next((x.dtype for x in tu.leaves(params)
+                   if x.is_floating_point()), torch.float32)
+        logits, _ = vision_apply(params, aux_state, batch["images"].to(cd),
+                                 False, self.cfg)
+        return logits.float()
+
+    def serve_input_spec(self, prompt_len: int):
+        del prompt_len               # no sequence dimension
+        return {"images": TensorSpec((1, 32, 32, 3), torch.float32)}
+
+    def serve_memory_model(self, params, total_len: int, mesh_size: int = 1,
+                           ladder: str = "gpu", weight_tier: int = 1, **kw):
+        from repro_torch.core.batch_scaler import ServeMemoryModel
+        from repro_torch.train.paper_harness import activation_elems
+        n = sum(int(x.numel()) for x in tu.leaves(params))
+        return ServeMemoryModel(
+            param_count=n / mesh_size, opt_slots=0,
+            act_bytes_per_token_layer=activation_elems(self.cfg) * 2.0,
+            num_layers=1, fixed_overhead=64e6, ladder=ladder,
+            weight_tier=weight_tier)
+
 
 @dataclasses.dataclass
-class LMTask:
+class LMTask(TrainTask):
     """A decoder-only LM on ``device`` (``cuda`` unless the caller passes
     ``device="cpu"``): training and serving hooks."""
     cfg: LMConfig
     device: Any = "cuda"
     serves_tokens = True
 
-    def __post_init__(self):
-        self.device = resolve_device(self.device)
-
-    @property
-    def name(self) -> str:
-        return self.cfg.name
-
-    @property
-    def compute_dtype(self):
-        return self.cfg.compute_dtype
-
     def init(self, gen: torch.Generator, device=None):
         """-> (params, aux_state={}); ``device`` overrides the task's."""
         return lm_init(gen, self.cfg,
                        self.device if device is None else device), {}
-
-    def tokens_per_sample(self, seq_len: int) -> int:
-        return seq_len
 
     def loss(self, params, aux_state, batch, codes, qdq_fn):
         total, metrics = lm_loss(params, batch, self.cfg,
@@ -171,9 +247,6 @@ class LMTask:
     def data_stream(self, global_batch, seed=0, seq_len: int = 128):
         return LMTaskStream(self.cfg.vocab_size, seq_len, global_batch,
                             seed=seed, device=self.device)
-
-    def eval_stream(self, global_batch, seed=0):
-        return self.data_stream(global_batch, seed)
 
     def memory_model(self, params, opt_slots: int, mesh_size: int = 1):
         from repro_torch.core.batch_scaler import MemoryModel
@@ -208,22 +281,6 @@ class LMTask:
 
     def serve_input_spec(self, prompt_len: int):
         return {"tokens": TensorSpec((1, prompt_len), torch.int32)}
-
-    def serve_memory_model(self, params, total_len: int, mesh_size: int = 1,
-                           ladder: str = "tpu", weight_tier: int = 1,
-                           spec_len: int = 1, **kw):
-        """Weights at the active tier + decode-cache bytes per slot."""
-        from repro_torch.core.batch_scaler import ServeMemoryModel
-        n = sum(int(x.numel()) for x in tu.leaves(params))
-        cache = self.init_cache(self.serve_input_spec(spec_len), total_len,
-                                device="meta")
-        per_seq = float(sum(x.numel() * x.element_size()
-                            for x in tu.leaves(cache)))
-        return ServeMemoryModel(
-            param_count=n / mesh_size, opt_slots=0,
-            act_bytes_per_token_layer=per_seq / max(total_len, 1),
-            num_layers=1, fixed_overhead=128e6, ladder=ladder,
-            weight_tier=weight_tier)
 
 
 def task_for_config(cfg, device="cuda"):

@@ -232,4 +232,5 @@ def test_decode_leaves_invalid_rows_bit_identical():
     for key in ("k", "v", "pos"):
         assert torch.equal(after[key][:, 1], before[key][:, 1]), key
         assert not torch.equal(after[key][:, 0], before[key][:, 0]), key
-    assert eng.runs == {"decode": 1, "admit": 2, "repack": 0}
+    assert eng.runs == {"decode": 1, "admit": 2, "chunk": 0, "infer": 0,
+                        "repack": 0}
