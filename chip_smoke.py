@@ -227,7 +227,36 @@ Phases (any failure raises and the script exits non-zero):
      BatchNorm statistics: the same trail, logits within ``VIS_TOL`` by
      tier, predictions equal but near ties, one one-pass ``qdq_cast`` a
      floating leaf of the tier-0 set; images/s and the peak bytes by
-     (rung, tier).
+     (rung, tier);
+ 12. the dense GQA architectures (``DENSE``: stablelm-1.6b, minitron-4b,
+     gemma3-4b), each in turn, its seconds and the phase's printed:
+     first its kernels at its shapes against their plain versions, timed
+     beside them, SDPA and the bounds: the tensor-core forward and the
+     three backward kernels at B 2 and its training S (32/32 heads of 64,
+     24/8 of 128, 8/4 of 256; gemma3-4b global and with its window of
+     1024), flash_decode at B 4 against its full-length serving cache
+     (rep 1 / D 64, rep 3 / D 128, rep 2 / D 256; gemma3-4b's local
+     layers' plain decode attention on its 1024-slot ring timed too), and
+     fused_stats / fused_apply on the model's whole training slab (1.6-4.2
+     B elements; the plain versions chunk by chunk, the apply donated,
+     bitwise); then training at full width and depth through
+     ``launch.train.main --arch ... --mem-cap-gb 80`` (``DENSE_STEPS``
+     steps, rungs 1/2, S 1024, gemma3-4b S 2048; the seconds of
+     ``task.init``, the peak), its launches exact (the forward 2 x L a
+     step on the tensor cores, delta, dQ and dK/dV L a step, one fused
+     update a step); the two-pass qdq_cast on the trained model's largest
+     leaf (786 M elements for minitron-4b) bitwise; serving the trained
+     weights (``ServeSession(params=...)``, the trainer freed first) at
+     full width and depth, rungs 1/2/4, tiers 1 then 0, six requests of 32
+     tokens, prompt 1024 and cache 2048 (gemma3-4b 2048 and 4096: its
+     local layers' rings wrap at prefill and again while decoding), its
+     launches exact (the forward L a prefill on the tensor cores,
+     flash_decode once a decode step for each unwindowed layer: 24, 32,
+     5; a two-pass cast a leaf), a decode step profiled (gemma3-4b: the
+     29 local layers' share of its device time); then a prefill and 4
+     teacher-forced decode steps of the trained weights' first layers
+     (2; gemma3-4b one period, 5 local and 1 global, prompt 1280) on the
+     card against the CPU, logits within 4 %.
 
 A kernel that runs on several main paths at different shapes
 (fused_stats and fused_apply: ResNet-18, EfficientNet-B0 and LM training;
@@ -265,7 +294,12 @@ on phase 10's serving plan path. ``flash_decode@chunked_prefill`` is the
 decode kernel on phase 11's chunk paths (11a and 11b: B 1 a prompt
 token, and their decode steps), timed at B 1 against a 128-slot cache;
 ``qdq_cast_one_pass@vision_serve`` the one-pass cast of phase 11c's
-tier-0 vision weight sets, timed over both models' leaves.
+tier-0 vision weight sets, timed over both models' leaves. Phase 12 adds
+``<kernel>@<arch>`` for each dense GQA architecture and each of
+``DENSE_ROWS``: the launches of that model's training and serving paths
+(the forward: both), the times at that model's shapes
+(``window_1024_ms``: gemma3-4b's windowed shape; ``flash_decode`` with
+``local_layer_device_ms`` and ``local_layers_share``).
 ``qdq_cast`` is the two-pass form the serving path launches,
 ``qdq_cast_one_pass`` the one-pass form the LM path's tier-0 set launches, both timed over the 11 leaves, f32 in
 and bf16 out as those paths cast (``f32_out_*``: the same with f32 out).
@@ -970,8 +1004,9 @@ def check_step_against_cpu(arch: str = "resnet18", floor: float = 0.0):
         tr = Trainer(VisionTask(VisionConfig(arch), device=dev), tac,
                      tcfg, device=dev)
         b = {k: v.to(dev) for k, v in batch.items()}
+        p0 = tr.state.params.detach().clone().cpu()  # the step donates
         st, met = tr._step_fn(tr.state, b)
-        out[dev] = (tr.state.params.cpu(), st, met)
+        out[dev] = (p0, st, met)
     view = tr.view
     (p0, sc, mc), (_, sg, mg) = out["cpu"], out["cuda"]
     cpu = lambda t: t.detach().cpu().float()
@@ -1146,7 +1181,7 @@ def hutchinson_main_path(arch: str = "efficientnet_b0", t_curv: int = 5,
         f"{ {k: v for k, v in launches.items() if v} }")
 
 
-def _profile(run, steps: int, family, what: str) -> None:
+def _profile(run, steps: int, family, what: str) -> dict:
     """``torch.profiler`` over ``run()`` (``steps`` steps): device time by
     ``family(kernel name)``, the union of the device intervals (busy), the
     host gaps and the idle share of the host's wall time."""
@@ -1181,6 +1216,8 @@ def _profile(run, steps: int, family, what: str) -> None:
         log(f"  {k}: {v / steps / 1e3:.4f} ms a step")
     for n, v in sorted(top.items(), key=lambda kv: -kv[1])[:8]:
         log(f"    {v / steps / 1e3:8.4f} ms  {n[:100]}")
+    return {"busy_ms": busy / steps / 1e3, "ops": len(kern) / steps,
+            "families": {k: v / steps / 1e3 for k, v in fam.items()}}
 
 
 def profile_steps(batch0: int, warm: int = 6, steps: int = 5,
@@ -2487,8 +2524,9 @@ def check_lm_step_against_cpu(layers: int = 2, seq: int = 1024,
     for dev in ("cpu", "cuda"):
         tr = Trainer(LMTask(cfg, device=dev), tac, tcfg, device=dev)
         b = {k: v.to(dev) for k, v in data.items()}
+        p0 = tr.state.params.detach().clone().cpu()  # the step donates
         st, met = tr._step_fn(tr.state, b)
-        out[dev] = (tr.state.params.cpu(), st, met)
+        out[dev] = (p0, st, met)
     view = tr.view
     (p0, sc, mc), (_, sg, mg) = out["cpu"], out["cuda"]
     cpu = lambda t: t.detach().cpu().float()     # noqa: E731
@@ -4748,6 +4786,721 @@ def check_decode_chunk(dev, bw, tc_rate) -> dict:
 
 
 #: the checks that run in a process of their own (``in_child``)
+# ------------------------------ phase 12: the dense GQA architectures ---
+#: phase 12's models: the training sequence, the serving prompt and cache,
+#: and the prompt of the card-vs-CPU check at the cut depth (gemma3-4b:
+#: past its 1024-token window, so the local layers mask keys there)
+DENSE = {
+    "stablelm-1.6b": dict(seq=1024, prompt=1024, total=2048,
+                          cpu_prompt=1024),
+    "minitron-4b": dict(seq=1024, prompt=1024, total=2048, cpu_prompt=1024),
+    "gemma3-4b": dict(seq=2048, prompt=2048, total=4096, cpu_prompt=1280),
+}
+#: the card-vs-CPU check's cache: full length past every prompt above
+DENSE_CPU_TOTAL = 2048
+#: training: launcher steps, rungs and the rung controllers' memory cap
+#: (the card's 80 GB, for serving too; the default of 16 GB is below each
+#: of these models' weights)
+DENSE_STEPS, DENSE_RUNGS, DENSE_MEM_CAP_GB = 10, "1,2", 80
+#: serving: requests of this many tokens, four up front and two later
+DENSE_REQUESTS, DENSE_TOKENS = 6, 32
+#: the kernels' launches that phase 12 reports per model (its rows)
+DENSE_ROWS = ("flash_attention", "flash_attention_bwd_delta",
+              "flash_attention_bwd_dq", "flash_attention_bwd_dkv",
+              "flash_decode", "fused_stats", "fused_apply", "qdq_cast")
+
+
+def _dense_cut(cfg, arch: str):
+    """The card-vs-CPU depth: 2 layers, gemma3-4b one period of its
+    pattern (5 local layers and 1 global)."""
+    seg = cfg.stack.segments[0]
+    n = 1 if arch == "gemma3-4b" else 2
+    return dataclasses.replace(cfg, stack=dataclasses.replace(
+        cfg.stack, segments=((seg[0], n),)))
+
+
+def _dense_cut_params(params, n: int):
+    """The first ``n`` stacked layers of segment 0 of a params tree, with
+    the embedding, final norm and readout."""
+    from repro_torch import tree as tu
+    out = {k: v for k, v in params.items() if k != "stack"}
+    out["stack"] = {"seg0": tu.tree_map(lambda x: x[:n],
+                                        params["stack"]["seg0"])}
+    return out
+
+
+def _pairs(B, H, S, window=0) -> float:
+    """(query, key) pairs of causal attention over S positions, each query
+    reading at most ``window`` keys (0: all before it)."""
+    w = window or S
+    return B * H * (w * (w + 1) / 2 + (S - w) * w)
+
+
+def _dense_attention(cfg, spec, dev, bw, tc_rate) -> dict:
+    """The flash forward and its three backward kernels against their
+    plain versions at the model's training shape (B 2, its S, its heads,
+    causal, bf16; gemma3-4b's local layers' window too), timed beside the
+    plain versions, SDPA and the bounds. The global shape's numbers fill
+    the rows; the window's are logged and kept as ``window_<w>_ms``."""
+    from repro_torch.kernels import flash_attention as fa
+    a = cfg.stack.attn
+    B, S, H, K, D = 2, spec["seq"], a.num_heads, a.num_kv_heads, a.head_dim
+    windows = sorted({bd.window for defs, _ in cfg.stack.segments
+                      for bd in defs})
+    gen = torch.Generator(device=dev).manual_seed(17)
+    out = {}
+    for w in windows:
+        kw = dict(causal=True, window=w)
+        q, k, v, do, o, lse = _bwd_inputs(B, S, H, K, D, D, torch.bfloat16,
+                                          dev, gen, **kw)
+        o = o.contiguous()           # as the forward kernel writes it
+        what = f"{cfg.name} attention B{B} S{S} {H}/{K} D{D} window {w}"
+        err_f = _flash_pair(q, k, v, None, kw, what, "tc")
+        route, errs = _bwd_pair(q, k, v, do, o, lse, None, kw, what)
+        check(route == "tc", f"{what}: dQ and dK/dV on the tensor cores")
+        delta = fa.flash_bwd_delta_ref(o, do)
+        pairs = _pairs(B, H, S, w)
+        nq, nkv, nl = B * S * H * D * 2, B * S * K * D * 2, B * H * S * 4
+        mask = None
+        if w:
+            i = torch.arange(S, device=dev)
+            mask = (i[None, :] <= i[:, None]) & (i[:, None] - i[None, :] < w)
+        sdpa_kw = dict(attn_mask=mask) if w else dict(is_causal=True)
+        qg, kg, vg = (x.detach().requires_grad_(True) for x in (q, k, v))
+        o_lib = _sdpa(qg, kg, vg, **sdpa_kw)
+        do_t = do.transpose(1, 2)
+        lib_bwd = time_ms(lambda: torch.autograd.grad(
+            o_lib, (qg, kg, vg), do_t, retain_graph=True), iters=5, reps=3)
+        t = {
+            "fwd": (time_ms(lambda: fa.flash_attention_cuda(
+                q, k, v, with_lse=True, **kw), iters=10, reps=3),
+                time_ms(lambda: fa.flash_attention_ref(
+                    q, k, v, with_lse=True, **kw), iters=2, reps=2),
+                time_ms(lambda: _sdpa(q, k, v, **sdpa_kw), iters=10,
+                        reps=3),
+                bound(2 * nq + 2 * nkv + nl, pairs * 4 * D, bw, tc_rate)),
+            "dq": (time_ms(lambda: fa.flash_bwd_dq_cuda(
+                q, k, v, do, lse, delta, **kw), iters=10, reps=3),
+                time_ms(lambda: fa.flash_bwd_dq_ref(
+                    q, k, v, do, lse, delta, **kw), iters=2, reps=2),
+                lib_bwd,
+                bound(3 * nq + 2 * nkv + 2 * nl, pairs * 6 * D, bw,
+                      tc_rate)),
+            "dkv": (time_ms(lambda: fa.flash_bwd_dkv_cuda(
+                q, k, v, do, lse, delta, **kw), iters=10, reps=3),
+                time_ms(lambda: fa.flash_bwd_dkv_ref(
+                    q, k, v, do, lse, delta, **kw), iters=2, reps=2),
+                lib_bwd,
+                bound(2 * nq + 4 * nkv + 2 * nl, pairs * 8 * D, bw,
+                      tc_rate)),
+            "delta": (time_ms(lambda: fa.flash_bwd_delta_cuda(o, do),
+                              iters=20, reps=3),
+                      time_ms(lambda: fa.flash_bwd_delta_ref(o, do), iters=5,
+                              reps=2),
+                      lib_bwd,
+                      bound(2 * nq + nl, B * S * H * D * 2, bw, tc_rate)),
+        }
+        log(f"  {what}: " + "; ".join(
+            f"{n} kernel {ms:.4f} ms, plain {pl:.4f}, "
+            f"{'sdpa backward' if n != 'fwd' else 'sdpa'} {lib:.4f}, bound "
+            f"{bd[0]:.4f} ({bd[1]})" for n, (ms, pl, lib, bd) in t.items())
+            + f"; max|err| fwd {err_f:.3g}, delta {errs['delta']:.3g}, dq "
+            f"{errs['dq']:.3g}, dkv {errs['dkv']:.3g}")
+        for n, key, err in (("fwd", "flash_attention", err_f),
+                            ("delta", "flash_attention_bwd_delta",
+                             errs["delta"]),
+                            ("dq", "flash_attention_bwd_dq", errs["dq"]),
+                            ("dkv", "flash_attention_bwd_dkv", errs["dkv"])):
+            ms, pl, lib, (b_ms, by) = t[n]
+            row = {"max_abs_err": err, "ms": ms, "plain_ms": pl,
+                   "bound_ms": b_ms, "bound_by": by, "library_ms": lib}
+            if key in out:             # the global shape fills the row
+                old = out[key]
+                old["max_abs_err"] = max(old["max_abs_err"], err)
+                old[f"window_{w}_ms"] = ms
+                continue
+            out[key] = row
+        del q, k, v, do, o, lse, delta, qg, kg, vg, o_lib
+    return out
+
+
+def _dense_decode(cfg, spec, dev, bw, tc_rate) -> dict:
+    """flash_decode against its plain version at the serving decode's shape
+    (B 4 rows against the model's full-length cache, live lengths past the
+    prompt), timed beside the plain version, SDPA with a length mask and
+    the byte bound. For gemma3-4b also the local layers' decode attention
+    (``nn.attention._naive_attention`` on their 1024-slot ring) timed by
+    the profiler, one layer's device time."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    from repro_torch.nn.attention import _naive_attention
+    a = cfg.stack.attn
+    B, L, H, K, D = 4, spec["total"], a.num_heads, a.num_kv_heads, a.head_dim
+    P = spec["prompt"]
+    gen = torch.Generator(device=dev).manual_seed(18)
+    q, k, v = _decode_inputs(B, L, H, K, D, D, torch.bfloat16, dev, gen)
+    lens = torch.tensor([P + 31, P + 20, P + 5, P], dtype=torch.int32,
+                        device=dev)
+    got = ops.flash_decode(q, k, v, lens)
+    want = fa.flash_decode_ref(q, k, v, lens)
+    what = f"{cfg.name} decode B{B} L{L} {H}/{K} D{D}"
+    err = close(got, want, what)
+    check(same(got, ops.flash_decode(q, k, v, lens)), f"{what}: bitwise "
+          "repeat")
+    ms = time_ms(lambda: fa.flash_decode_cuda(q, k, v, lens), iters=50)
+    dev_ms = device_ms(lambda: fa.flash_decode_cuda(q, k, v, lens))
+    plain_ms = time_ms(lambda: fa.flash_decode_ref(q, k, v, lens), iters=5)
+    mask = (torch.arange(L, device=dev)[None, :] < lens[:, None]
+            ).reshape(B, 1, 1, L)
+    lib_ms = time_ms(lambda: _sdpa(q, k, v, attn_mask=mask), iters=50)
+    lib_dev_ms = device_ms(lambda: _sdpa(q, k, v, attn_mask=mask))
+    live = int(lens.sum())
+    b_ms, by = bound(2 * (2 * B * H * D + 2 * live * K * D) + 4 * B,
+                     live * H * 4 * D, bw, tc_rate)
+    row = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+           "bound_ms": b_ms, "bound_by": by, "library_ms": lib_ms,
+           "device_ms": dev_ms, "library_device_ms": lib_dev_ms}
+    msg = (f"  {what}, live {lens.tolist()}: kernel {ms:.5f} ms (device "
+           f"{dev_ms:.5f}), plain {plain_ms:.4f}, sdpa {lib_ms:.4f} (device "
+           f"{lib_dev_ms:.5f}), bound {b_ms:.5f} ({by}), max|err| {err:.3g}")
+    wins = [bd.window for defs, _ in cfg.stack.segments for bd in defs
+            if bd.window]
+    if wins:
+        w = wins[0]
+        ring_k, ring_v = (x[:, :w].contiguous() for x in (k, v))
+        cpos = (P + torch.arange(w, device=dev, dtype=torch.int32))[
+            None].expand(B, w).contiguous()
+        qpos = (P + w - 1) * torch.ones((B, 1), dtype=torch.int32,
+                                        device=dev)
+        local = lambda: _naive_attention(  # noqa: E731
+            q, ring_k, ring_v, qpos, cpos, True, w, a.scale)
+        row["local_layer_device_ms"] = device_ms(local)
+        msg += (f"; a local layer's decode attention (plain, {w}-slot ring) "
+                f"device {row['local_layer_device_ms']:.5f} ms")
+    log(msg)
+    return row
+
+
+def _dense_qdq(params, dev, bw, ops_rate) -> dict:
+    """The tier-0 cast (two-pass form, f32 in, bf16 out) on the model's
+    largest leaf against its plain version, bitwise (past 2^31 bytes in
+    f32 for minitron-4b's and gemma3-4b's readouts: 64-bit offsets),
+    timed beside the plain version and the byte bound."""
+    from repro_torch import tree as tu
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import qdq_cast as qc
+    x = max(tu.leaves(params), key=lambda t: t.numel())
+    bf = torch.bfloat16
+    got = ops.qdq_cast(x, 0, "tpu", out_dtype=bf)
+    want = qc.qdq_cast_ref(x, 0, "tpu", None, out_dtype=bf)
+    torch.cuda.synchronize()
+    what = f"qdq_cast two-pass on a {tuple(x.shape)} leaf ({x.numel()} " \
+        f"elements, {x.numel() * 4} bytes f32)"
+    check(got.dtype == bf and same(got, want), what)
+    del want
+    ms = time_ms(lambda: ops.qdq_cast(x, 0, "tpu", out_dtype=bf), iters=5,
+                 reps=3)
+    plain_ms = time_ms(lambda: qc.qdq_cast_ref(x, 0, "tpu", None,
+                                               out_dtype=bf), iters=1,
+                       reps=2)
+    b_ms, by = bound(x.numel() * 6, x.numel() * 4, bw, ops_rate)
+    log(f"  {what}: bitwise; kernel {ms:.4f} ms, plain {plain_ms:.4f}, "
+        f"bound {b_ms:.4f} ({by})")
+    return {"max_abs_err": abs_err(got, ops.qdq_cast(x, 0, "tpu",
+                                                     out_dtype=bf)),
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+            "bound_by": by, "library_ms": None}
+
+
+def _dense_fused(view, dev, bw, f32_ops, what, chunk_rows=1 << 18) -> dict:
+    """fused_stats and fused_apply on the model's whole training slab (the
+    LM path's variant: sgdm, gpu ladder, bf16 gradient and copy) against
+    their plain versions, which run ``chunk_rows`` rows at a time (at
+    1.6-4.2 B elements their f32 temporaries would not fit the card
+    whole; each row is independent, and the per-layer results combine by
+    sum and max). The inputs are drawn chunk by chunk from seeds, so the
+    plain versions draw them again after the kernel has updated the slabs
+    in place (``donate``, as the trainer's loop runs it). fused_stats:
+    absmax and the non-finite count bitwise; the sums and the sums of
+    squares held to f64 sums within the kernel's longest chain of f32
+    additions times 2^-24 of the sum of |terms| (at 4 B elements the
+    squares of kernel and plain version no longer agree to rtol 1e-5).
+    fused_apply: master, momentum, copy and the per-layer absmax
+    bitwise."""
+    from repro_torch.kernels import fused_update as fu
+    from repro_torch.kernels import ops
+    var = lm_train_variant()
+    rows, L = view.rows, view.num_layers
+    rl = view.row_blocks(dev)
+    T = rl.shape[1]
+    chunks = [slice(r, min(r + chunk_rows, rows))
+              for r in range(0, rows, chunk_rows)]
+    tiles = [slice(c.start // T, c.stop // T) for c in chunks]
+    gen = torch.Generator(device=dev)
+
+    def draw(i):
+        n = chunks[i].stop - chunks[i].start
+        gen.manual_seed(1000 + i)
+        g = (torch.randn((n, 512), generator=gen, device=dev) * 1e-3
+             ).to(var["g_dtype"])
+        p = torch.randn((n, 512), generator=gen, device=dev) * 0.05
+        m = torch.randn((n, 512), generator=gen, device=dev) * 1e-3
+        return g, p, m
+
+    g = torch.empty((rows, 512), dtype=var["g_dtype"], device=dev)
+    p = torch.empty((rows, 512), device=dev)
+    m = torch.empty((rows, 512), device=dev)
+    for i, sl in enumerate(chunks):
+        g[sl], p[sl], m[sl] = draw(i)
+    g[5, 7], g[rows // 2, 0], g[rows - 1, 511] = (float("inf"),
+                                                  -float("inf"),
+                                                  float("nan"))
+    bad = [(5, 7), (rows // 2, 0), (rows - 1, 511)]
+    # fused_stats, the kernel on the whole slab, the plain version by chunk
+    got = ops.fused_stats(g, rl, L)
+    acc = None
+    truth = torch.zeros(L, dtype=torch.float64, device=dev)
+    mass = torch.zeros(L, dtype=torch.float64, device=dev)
+    squares = torch.zeros(L, dtype=torch.float64, device=dev)
+    for sl, ts in zip(chunks, tiles):
+        part = fu.fused_stats_ref(g[sl], rl[ts], L)
+        acc = part if acc is None else (
+            acc[0] + part[0], acc[1] + part[1],
+            torch.maximum(acc[2], part[2]), acc[3] + part[3])
+        fin = torch.where(torch.isfinite(g[sl]), g[sl], 0).double()
+        ids = rl[ts].reshape(-1).long()
+        truth.index_add_(0, ids, fin.sum(dim=1))
+        mass.index_add_(0, ids, fin.abs().sum(dim=1))
+        squares.index_add_(0, ids, (fin * fin).sum(dim=1))
+        del fin
+    torch.cuda.synchronize()
+    check(same(got[2], acc[2]) and same(got[3], acc[3]),
+          f"fused_stats ({what}) absmax and non-finite count")
+    check(float(got[3].sum()) == 3.0, "fused_stats counts 3 non-finite")
+    # f32 sums of up to 4.2 B terms: each held to the f64 sum of the same
+    # finite lanes within the longest chain of f32 additions the kernel
+    # makes for one layer (16 a lane, 5 a warp, 32 rows a block, a 256-
+    # thread pass over the blocks, 8 in its tree; one more for the square)
+    # times 2^-24 of the sum of |terms|; the plain version's chains (torch's
+    # reduction by chunk, then the chunks in turn) are shorter
+    chain = 16 + 5 + 32 + -(-(rows // fu._lib().tri_rows_per_block())
+                           // 256) + 8 + 1
+    rel = {}
+    for who, i, want_, scale in (("kernel", 0, truth, mass),
+                                 ("plain", 0, truth, mass),
+                                 ("kernel", 1, squares, squares),
+                                 ("plain", 1, squares, squares)):
+        val = (got if who == "kernel" else acc)[i].double()
+        off = (val - want_).abs()
+        rel[(who, i)] = float((off / scale.clamp_min(1e-300)).max())
+        check(bool((off <= chain * 2.0 ** -24 * scale).all()),
+              f"fused_stats ({what}) {('sum', 'sum_sq')[i]} ({who}) off "
+              f"the f64 sum by {rel[(who, i)]:.3g} of the sum of |terms| "
+              f"(bound {chain} x 2^-24)")
+    err_s = max(abs_err(a_, b_) for a_, b_ in zip(got, acc))
+    s_ms = time_ms(lambda: ops.fused_stats(g, rl, L), iters=10, reps=3)
+    def stats_plain():            # chunk by chunk, nothing kept
+        for sl, ts in zip(chunks, tiles):
+            fu.fused_stats_ref(g[sl], rl[ts], L)
+
+    s_plain = time_ms(stats_plain, iters=1, reps=2)
+    s_bound = bound(rows * 512 * g.element_size() + rows * 4 + 16 * L,
+                    rows * 512 * 8, bw, f32_ops)
+    for r, c in bad:
+        g[r, c] = 0.0
+    # fused_apply, donated, against the plain version by chunk
+    gen2 = torch.Generator(device=dev).manual_seed(5)
+    lr = torch.full(rl.shape, 1e-2, device=dev)
+    code = torch.randint(0, 3, rl.shape, generator=gen2, device=dev,
+                         dtype=torch.int32)
+    qs = 448.0 / (1.0 + 7.0 * torch.rand(rl.shape, generator=gen2,
+                                         device=dev))
+    scal = torch.tensor([0.5, 1.0, 1.0, 1.0, 7.0], device=dev)
+    kw = dict(spec=var["spec"], ladder=var["ladder"],
+              cp_dtype=var["cp_dtype"], num_layers=L, sr=var["sr"])
+    cp = torch.empty((rows, 512), dtype=var["cp_dtype"], device=dev)
+    outs = ops.fused_apply(g, p, m, None, scal, rl, lr, code, qs,
+                           cp_out=cp, donate=True, **kw)
+    torch.cuda.synchronize()
+    check(outs[0] is p and outs[1] is m and outs[3] is cp,
+          "fused_apply(donate=True) writes over its inputs")
+    pmax = torch.zeros(L, device=dev)
+    err_a = 0.0
+    for i, (sl, ts) in enumerate(zip(chunks, tiles)):
+        gi, pi, mi = draw(i)
+        for r, c in bad:
+            if sl.start <= r < sl.stop:
+                gi[r - sl.start, c] = 0.0
+        want = fu.fused_apply_ref(gi, pi, mi, None, scal, rl[ts], lr[ts],
+                                  code[ts], qs[ts], **kw)
+        for n, a_, b_ in zip(("p", "m", "cp"), (p[sl], m[sl], cp[sl]),
+                             (want[0], want[1], want[3])):
+            check(same(a_, b_), f"fused_apply ({what}) {n} rows "
+                  f"{sl.start}-{sl.stop}")
+            err_a = max(err_a, abs_err(a_, b_))
+        pmax = torch.maximum(pmax, want[4])
+    check(same(outs[4], pmax), f"fused_apply ({what}) per-layer absmax")
+    a_ms = time_ms(lambda: ops.fused_apply(g, p, m, None, scal, rl, lr, code,
+                                           qs, cp_out=cp, donate=True, **kw),
+                   iters=5, reps=3)
+    def apply_plain():            # chunk by chunk, nothing kept
+        for sl, ts in zip(chunks, tiles):
+            fu.fused_apply_ref(g[sl], p[sl], m[sl], None, scal, rl[ts],
+                               lr[ts], code[ts], qs[ts], **kw)
+
+    a_plain = time_ms(apply_plain, iters=1, reps=2)
+    elems = rows * 512
+    a_bound = bound(elems * (g.element_size() + 16 + cp.element_size())
+                    + 16 * rows + 20 + 4 * L, elems * 16, bw, f32_ops)
+    log(f"  fused_stats / fused_apply ({what}) {rows}x512 ({elems} "
+        f"elements) bf16 gradient, L={L}: stats kernel {s_ms:.4f} ms, plain "
+        f"by {len(chunks)} chunks {s_plain:.4f}, bound {s_bound[0]:.4f} "
+        f"({s_bound[1]}); apply (donated) kernel {a_ms:.4f} ms, plain "
+        f"{a_plain:.4f}, bound {a_bound[0]:.4f} ({a_bound[1]}); apply "
+        f"bitwise; sums off the f64 sums by kernel {rel[('kernel', 0)]:.3g}"
+        f" / plain {rel[('plain', 0)]:.3g} of sum|g|, squares by "
+        f"{rel[('kernel', 1)]:.3g} / {rel[('plain', 1)]:.3g} (bound "
+        f"{chain} x 2^-24 = {chain * 2.0 ** -24:.3g})")
+    return {"fused_stats": {"max_abs_err": err_s, "ms": s_ms,
+                            "plain_ms": s_plain, "bound_ms": s_bound[0],
+                            "bound_by": s_bound[1], "library_ms": None},
+            "fused_apply": {"max_abs_err": err_a, "ms": a_ms,
+                            "plain_ms": a_plain, "bound_ms": a_bound[0],
+                            "bound_by": a_bound[1], "library_ms": None}}
+
+
+def _timed_init(records: list):
+    """Record the seconds of each ``LMTask.init`` call made inside the
+    context (the seeded draw on the host and the copy to the card)."""
+    from repro_torch.train.task import LMTask
+    orig = LMTask.init
+
+    def init(self, gen, device=None):
+        t0 = time.perf_counter()
+        out = orig(self, gen, device)
+        if torch.device(self.device if device is None
+                        else device).type == "cuda":
+            torch.cuda.synchronize()
+        records.append(time.perf_counter() - t0)
+        return out
+
+    @contextlib.contextmanager
+    def ctx():
+        LMTask.init = init
+        try:
+            yield
+        finally:
+            LMTask.init = orig
+    return ctx()
+
+
+def dense_train(arch: str, spec: dict, device="cuda"):
+    """Train ``arch`` at full width and depth through the launcher:
+    ``launch.train.main(--arch arch --seq S --rungs 1,2 --steps 10
+    --ladder gpu --mem-cap-gb 80)``. Launches exact: the forward 2 x L a
+    step on the tensor-core route (forward and remat recompute), delta, dQ
+    and dK/dV L a step (dQ and dK/dV on the tensor cores), one fused_stats
+    and fused_apply a step; no fallback, no OOM, finite losses.
+    -> (trainer, launches, seconds of ``task.init``, wall seconds)."""
+    import io
+    import warnings
+    from repro_torch import tree as tu
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as launch_train
+    args = ["--arch", arch, "--seq", str(spec["seq"]), "--rungs",
+            DENSE_RUNGS, "--steps", str(DENSE_STEPS), "--ladder", "gpu",
+            "--mem-cap-gb", str(DENSE_MEM_CAP_GB), "--device", device]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    ops.WARNED_FALLBACKS.clear()
+    printed, inits = io.StringIO(), []
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(printed), signals_kept(), \
+                _timed_init(inits):
+            tr = launch_train.main(args)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    L, steps = tr.task.cfg.num_layers, DENSE_STEPS
+    fallbacks = [str(w.message) for w in caught
+                 if "kernel gate failed" in str(w.message)]
+    check(not fallbacks and not ops.WARNED_FALLBACKS,
+          f"{arch}: fallback warnings on the training path: {fallbacks}")
+    check(not tr.oom_events, f"{arch}: OOM events {tr.oom_events}")
+    check(int(tr.state.control.step) == steps, f"{arch}: all steps taken")
+    lines = [json.loads(x) for x in printed.getvalue().splitlines()]
+    check(lines and all(math.isfinite(m_["loss"]) for m_ in lines),
+          f"{arch}: losses {lines}")
+    want = {"flash_attention": 2 * L * steps,
+            "flash_attention_tc": 2 * L * steps,
+            "flash_attention_bwd_delta": L * steps,
+            "flash_attention_bwd_dq": L * steps,
+            "flash_attention_bwd_dq_tc": L * steps,
+            "flash_attention_bwd_dkv": L * steps,
+            "flash_attention_bwd_dkv_tc": L * steps,
+            "fused_stats": steps, "fused_apply": steps}
+    for k, n in want.items():
+        check(launches[k] == n, f"{arch}: {k}: {launches[k]} launches, "
+              f"expected {n}")
+    var = lm_train_variant()
+    check(tr.opt.spec == var["spec"] and tr.tac.ladder == var["ladder"]
+          and not tr.tac.stochastic_round
+          and tr.state.compute["slab"].dtype == var["g_dtype"],
+          f"{arch}: the fused update variant the kernels were checked on")
+    n = sum(int(x.numel()) for x in tu.leaves(tr._params_like))
+    log(f"{arch} training: launch.train.main({' '.join(args)}): {steps} "
+        f"steps in {wall:.2f} s; task.init {inits[0]:.2f} s ({n} "
+        f"parameters, seeded on the host, copied to the card), "
+        f"{L} layers, slab {tr.view.rows} x 512; peak allocated "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB; measured peak "
+        f"bytes per rung { {k: int(v) for k, v in tr.measured_bytes.items()} }"
+        f", rung history {tr.scaler.history}")
+    log(f"  logged loss {[round(m_['loss'], 4) for m_ in lines]}; launches "
+        f"{ {k: v for k, v in launches.items() if v} }")
+    return tr, launches, inits[0], wall
+
+
+def dense_serve(arch: str, spec: dict, params, device="cuda") -> dict:
+    """``ServeSession(params=...)`` over the trained weights at full width
+    and depth: prompt and cache from ``spec``, rungs 1/2/4, tiers 1 then 0
+    (tpu ladder: the tier-0 set two-pass), ``DENSE_REQUESTS`` requests of
+    ``DENSE_TOKENS`` tokens, four up front and the rest after three steps,
+    tier 0 pinned after 8 decode steps. Launches exact: the flash forward
+    L a prefill on the tensor-core route, flash_decode once a decode step
+    for each layer whose cache the decode kernel takes (unwindowed;
+    gemma3-4b's 5 global layers, its 29 local ones on the plain path), a
+    two-pass qdq_cast a leaf; no fallback. Then one decode step profiled."""
+    import warnings
+    from repro_torch import tree as tu
+    from repro_torch.kernels import ops
+    from repro_torch.models.registry import get_task
+    from repro_torch.serve import ServeConfig, ServeSession
+    task = get_task(arch, device=device)
+    L, vocab = task.cfg.num_layers, task.cfg.vocab_size
+    n_flash = sum(n * sum(1 for bd in defs if not bd.window)
+                  for defs, n in task.cfg.stack.segments)
+    n_local = L - n_flash
+    n_leaves = len(tu.leaves(params))
+    cfg = ServeConfig(prompt_len=spec["prompt"], total_len=spec["total"],
+                      rungs=(1, 2, 4), tiers=(0, 1), ladder="tpu",
+                      max_new_tokens=DENSE_TOKENS, schedule="fifo", seed=0,
+                      mem_cap_bytes=DENSE_MEM_CAP_GB * 1e9)
+    prompts = np.random.default_rng(12).integers(
+        0, vocab, (DENSE_REQUESTS, cfg.prompt_len))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    ops.WARNED_FALLBACKS.clear()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        t0 = time.perf_counter()
+        sess = ServeSession(task, cfg, params=params, device=device)
+        del params
+        t1 = time.perf_counter()
+        sess.warm()
+        warm_runs = dict(sess.engine.runs)
+        t2 = time.perf_counter()
+        for p in prompts[:4]:
+            sess.submit({"tokens": p})
+        for _ in range(3):
+            sess.step()
+        for p in prompts[4:]:
+            sess.submit({"tokens": p})
+        while sess.engine.runs["decode"] - warm_runs["decode"] < 8:
+            sess.step()
+        sess.set_tier(0)
+        stats = sess.run()
+        torch.cuda.synchronize()
+        serve_s = time.perf_counter() - t2
+    launches = dict(ops.LAUNCHES)
+    runs = dict(sess.engine.runs)
+    fallbacks = [str(w.message) for w in caught
+                 if "kernel gate failed" in str(w.message)]
+    check(not fallbacks and not ops.WARNED_FALLBACKS,
+          f"{arch}: fallback warnings on the serving path: {fallbacks}")
+    reqs = sess.results()
+    check(len(reqs) == DENSE_REQUESTS and all(
+        r.status == "done" and len(r.tokens) == DENSE_TOKENS
+        and all(0 <= t < vocab for t in r.tokens) for r in reqs.values()),
+        f"{arch}: every request done")
+    check(launches["flash_attention"] == L * runs["admit"]
+          == launches["flash_attention_tc"],
+          f"{arch}: the flash forward L a prefill, tensor cores: "
+          f"{launches} vs {runs}")
+    check(launches["flash_decode"] == n_flash * runs["decode"],
+          f"{arch}: flash_decode {n_flash} a decode step: {launches} vs "
+          f"{runs}")
+    check(launches["qdq_cast"] == launches["qdq_cast_two_pass"] == n_leaves,
+          f"{arch}: a two-pass qdq_cast a leaf: {launches}")
+    check(any(t == 0 for _, t in stats["tier_history"]), f"{arch}: tier 0")
+    check(max(r for _, r in stats["rung_history"]) == 4,
+          f"{arch}: rung reached 4")
+    tokens = stats["decoded_tokens"]
+    peak = torch.cuda.max_memory_allocated()
+    lat = {f"{r}/{t}": round(float(np.median(sess.lat.samples(r, t))) * 1e3,
+                             3)
+           for r in cfg.rungs for t in cfg.tiers if sess.lat.samples(r, t)}
+    log(f"{arch} serving: {L} layers ({n_flash} on flash_decode, {n_local} "
+        f"local on the plain decode attention), {DENSE_REQUESTS} requests x "
+        f"{DENSE_TOKENS} tokens, prompt {cfg.prompt_len}, cache "
+        f"{cfg.total_len}: session {t1 - t0:.2f} s, warm {t2 - t1:.2f} s, "
+        f"serving {serve_s:.3f} s, {tokens / serve_s:.1f} tok/s, TTFT p50 "
+        f"{stats['ttft_s_p50'] * 1e3:.1f} ms p99 "
+        f"{stats['ttft_s_p99'] * 1e3:.1f} ms, peak allocated "
+        f"{peak / 1e9:.3f} GB")
+    log(f"  median decode step ms by rung/tier {lat}; rung history "
+        f"{stats['rung_history']}, tier history {stats['tier_history']}; "
+        f"path runs {runs}; launches "
+        f"{ {k: v for k, v in launches.items() if v} }")
+    # a decode step at rung 4, tier 0: where its device time goes
+    rng = np.random.default_rng(13)
+    for _ in range(4):
+        sess.submit({"tokens": rng.integers(0, vocab, (cfg.prompt_len,))},
+                    max_new_tokens=6)
+    sess.step()
+    sess.step()
+
+    def run():
+        for _ in range(3):
+            sess.step()
+    prof = _profile(run, 3, _serve_family,
+                    f"{arch}: 3 decode steps at rung {sess.rung} tier "
+                    f"{sess.tier}")
+    sess.run()
+    del sess
+    return {"launches": launches, "runs": runs, "n_local": n_local,
+            "decode_busy_ms": prof["busy_ms"], "tok_s": tokens / serve_s,
+            "peak": peak}
+
+
+def dense_against_cpu(arch: str, spec: dict, cut, steps: int = 4,
+                      card="cuda"):
+    """A prefill of ``cpu_prompt`` tokens and ``steps`` teacher-forced
+    decode steps at full width and the cut depth (``cut``: the trained
+    weights' first layers, bf16, on the host), on the card (kernels) and
+    on the CPU (plain versions); logits within 4 % of their largest
+    magnitude, as phase 4's smollm-135m check."""
+    from repro_torch import tree as tu
+    from repro_torch.models import lm
+    from repro_torch.models.registry import get_model_config
+    from repro_torch.serve.engine import scatter_prefill
+    cfg = _dense_cut(get_model_config(arch), arch)
+    prompt, total = spec["cpu_prompt"], DENSE_CPU_TOTAL
+    g = torch.Generator().manual_seed(4)
+    toks = torch.randint(0, cfg.vocab_size, (1, prompt), generator=g,
+                         dtype=torch.int32)
+    feed = torch.randint(0, cfg.vocab_size, (steps, 1), generator=g,
+                         dtype=torch.int32)
+    out, secs = {}, {}
+    for dev in ("cpu", card):
+        t0 = time.perf_counter()
+        p = tu.tree_map(lambda x: x.to(dev), cut)
+        logits = []
+        with torch.no_grad():
+            lg, pre = lm.lm_prefill(p, {"tokens": toks.to(dev)}, cfg)
+            logits.append(lg.float().cpu())
+            caches = scatter_prefill(
+                lm.lm_init_cache(cfg, 1, total, device=dev), pre, 0)
+            for i in range(steps):
+                lg, caches = lm.lm_decode_step(
+                    p, feed[i].to(dev), caches,
+                    torch.tensor([prompt + i], device=dev), cfg)
+                logits.append(lg.float().cpu())
+        out[dev] = torch.stack(logits)
+        secs[dev] = time.perf_counter() - t0
+        del p, caches, pre
+    ref, got = out["cpu"], out[card]
+    gap = float((got - ref).abs().max())
+    lim = 0.04 * float(ref.abs().max())
+    same_top = (got.argmax(-1) == ref.argmax(-1)).float().mean()
+    log(f"{arch} x{cfg.num_layers} layers (the trained weights' first), "
+        f"prefill {prompt} + {steps} decode steps, card vs CPU: "
+        f"max|dlogit| {gap:.4g} (limit {lim:.4g}), same argmax "
+        f"{float(same_top):.2f}; CPU {secs['cpu']:.1f} s, card "
+        f"{secs[card]:.1f} s")
+    check(bool(torch.isfinite(got).all()), f"{arch}: finite card logits")
+    check(gap <= lim, f"{arch}: card vs CPU logits {gap} > {lim}")
+
+
+def dense_phase(card: str, dev, bw, f32_ops, tc_ops) -> dict:
+    """Phase 12: for each dense GQA architecture, its kernels against their
+    plain versions at its shapes, training at full width and depth
+    through the launcher, the card-vs-CPU check at the cut depth on the
+    trained weights, then serving the trained weights at full width and
+    depth (between the two, three more steps timed and one profiled).
+    -> {arch: {"rows": {kernel: result}, "launches": {kernel: launches on
+    the model's main paths}}}."""
+    from repro_torch import tree as tu
+    from repro_torch.kernels.layout import slab_view
+    from repro_torch.models.registry import get_model_config
+    from repro_torch.train.task import LMTask
+    t_phase = time.perf_counter()
+    log(f"phase 12 starts with {torch.cuda.memory_allocated() / 1e9:.3f} GB "
+        "allocated on the card")
+    out = {}
+    for arch, spec in DENSE.items():
+        t_model = time.perf_counter()
+        cfg = get_model_config(arch)
+        log(f"{arch}: kernels at its shapes ({card})")
+        rows = _dense_attention(cfg, spec, dev, bw, tc_ops)
+        rows["flash_decode"] = _dense_decode(cfg, spec, dev, bw, tc_ops)
+        task = LMTask(cfg, device="cpu")
+        like, _ = task.init(torch.Generator(), device="meta")
+        rows.update(_dense_fused(slab_view(like, task.grouping(like)), dev,
+                                 bw, f32_ops, arch))
+        gc.collect()
+        torch.cuda.empty_cache()
+        tr, tl, init_s, train_s = dense_train(arch, spec)
+        step_ms = []
+        for _ in range(3):              # unprofiled steps at the top rung
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            tr.run(1)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+        log(f"{arch}: a train step at rung {tr.scaler.microbatch}, S "
+            f"{spec['seq']}: {statistics.median(step_ms):.1f} ms (median of "
+            f"3: {[round(x, 1) for x in step_ms]})")
+        profile_lm_step(tr)
+        params = tr.params_tree()
+        del tr
+        gc.collect()
+        torch.cuda.empty_cache()
+        n_cut = _dense_cut(cfg, arch).stack.segments[0][1]
+        cut = tu.tree_map(lambda x: x.to(torch.bfloat16).cpu(),
+                          _dense_cut_params(params, n_cut))
+        rows["qdq_cast"] = _dense_qdq(params, dev, bw, f32_ops)
+        sv = dense_serve(arch, spec, params)
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+        dense_against_cpu(arch, spec, cut)
+        del cut
+        launches = {k: tl.get(k, 0) for k in DENSE_ROWS}
+        launches["flash_attention"] += sv["launches"]["flash_attention"]
+        for k in ("flash_decode", "qdq_cast"):
+            launches[k] = sv["launches"][k]
+        loc = rows["flash_decode"].get("local_layer_device_ms")
+        if loc is not None:
+            share = sv["n_local"] * loc / sv["decode_busy_ms"]
+            rows["flash_decode"]["local_layers_share"] = share
+            log(f"{arch}: the {sv['n_local']} local layers' plain decode "
+                f"attention, {loc:.5f} ms each at B 4: {share:.3f} of a "
+                f"decode step's device time ({sv['decode_busy_ms']:.3f} ms "
+                "busy, profiled at rung 4)")
+        out[arch] = {"rows": rows, "launches": launches}
+        log(f"{arch}: task.init {init_s:.1f} s, training {train_s:.1f} s, "
+            f"the model's part of phase 12 "
+            f"{time.perf_counter() - t_model:.1f} s ({card})")
+        gc.collect()
+        torch.cuda.empty_cache()
+    log(f"phase 12 in {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
 CHILDREN = {"train-real-oom": real_oom, "serve-real-oom": serve_real_oom}
 
 
@@ -4760,6 +5513,9 @@ def main() -> int:
                     help="build and hold the kernels against their plain "
                          "versions (phases 1-3), then stop; prints no "
                          "result line")
+    ap.add_argument("--dense-only", action="store_true",
+                    help="build, then run phase 12 (the dense GQA "
+                         "architectures) alone; prints no result line")
     ap.add_argument("--child", choices=sorted(CHILDREN),
                     help=argparse.SUPPRESS)   # a check's own process
     args = ap.parse_args()
@@ -4807,6 +5563,9 @@ def main() -> int:
                       f"no spills in the Hopper (sm90) sources: {kern}")
 
     dev = torch.device("cuda")
+    if args.dense_only:
+        dense_phase(card, dev, bw, f32_ops, tc_ops)
+        return 0
     t_phase = time.perf_counter()
     view = vision_view()
     res = {"fused_stats": check_stats(view, dev, bw, f32_ops),
@@ -4968,6 +5727,15 @@ def main() -> int:
     launches["flash_decode@chunked_prefill"] = (
         rest["chunk"]["flash_decode"] + rest["slo"]["flash_decode"])
     launches["qdq_cast_one_pass@vision_serve"] = rest["vision"]
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the dense GQA architectures: each model's kernels at its shapes, then
+    # its training and serving main paths with their counts read around them
+    for arch, d in dense_phase(card, dev, bw, f32_ops, tc_ops).items():
+        for k, r in d["rows"].items():
+            res[f"{k}@{arch}"] = r
+            launches[f"{k}@{arch}"] = d["launches"][k]
 
     rows = [{"name": rname, "route": "cuda", "source": src,
              "replaces": replaces, "launches": launches[rname],

@@ -9,6 +9,8 @@ without a card raises.
 """
 import torch
 
+__version__ = "0.1.0"
+
 __all__ = ["resolve_device"]
 
 

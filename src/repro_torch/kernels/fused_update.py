@@ -135,10 +135,13 @@ def fused_stats_ref(g_slab, row_layer, num_layers: int):
 def fused_apply_ref(g_slab, p_slab, m_slab, v_slab, scalars, row_layer,
                     lr_rows, code_rows, qs_rows, *, spec: OptSpec,
                     ladder: str, cp_dtype, num_layers: int,
-                    sr: bool = False):
+                    sr: bool = False, cp_out=None, donate: bool = False):
     """Plain PyTorch phase 2 -> (p_new, m_new, v_new | None, compute_copy,
     p_amax (L,)). ``scalars`` = [gscale, keep, c1, c2, sr_seed]; ``sr``
-    applies only to a bf16 copy."""
+    applies only to a bf16 copy. With ``donate`` the results are written
+    into ``p_slab``, ``m_slab``, ``v_slab`` and ``cp_out`` (the previous
+    compute copy, when given) and those are returned, as the kernel
+    does."""
     sr = bool(sr) and cp_dtype == torch.bfloat16
     keep = scalars[1] > 0.0
     g = g_slab.float() * scalars[0]                       # unscale + clip
@@ -168,6 +171,12 @@ def fused_apply_ref(g_slab, p_slab, m_slab, v_slab, scalars, row_layer,
                       ladder).to(cp_dtype)
     pmax = _segment_max(cwf.abs().amax(dim=1), row_layer.reshape(-1).long(),
                         num_layers)
+    if donate:
+        pn, m2 = p_slab.copy_(pn), m_slab.copy_(m2)
+        if v2 is not None:
+            v2 = v_slab.copy_(v2)
+        if cp_out is not None:
+            cp = cp_out.copy_(cp)
     return pn, m2, v2, cp, pmax
 
 
@@ -239,9 +248,13 @@ def fused_stats_cuda(g_slab, row_layer, num_layers: int):
 def fused_apply_cuda(g_slab, p_slab, m_slab, v_slab, scalars, row_layer,
                      lr_rows, code_rows, qs_rows, *, spec: OptSpec,
                      ladder: str, cp_dtype, num_layers: int,
-                     sr: bool = False):
+                     sr: bool = False, cp_out=None, donate: bool = False):
     """Phase-2 CUDA kernel -> (p_new, m_new, v_new | None, compute_copy,
-    p_amax (L,)); outputs are fresh tensors."""
+    p_amax (L,)); outputs are fresh tensors, or with ``donate`` the input
+    slabs themselves (and ``cp_out``, the previous compute copy, when
+    given): each thread reads its elements of p, m and v into registers
+    before it writes them, and reads no compute copy, so the kernel may
+    update them in place."""
     rows = p_slab.shape[0]
     shape = (rows, SLAB_N)
     meta = (rows // SLAB_M, SLAB_M)
@@ -271,11 +284,15 @@ def fused_apply_cuda(g_slab, p_slab, m_slab, v_slab, scalars, row_layer,
         raise ValueError("fused_apply inputs lie on different devices")
     lib = _lib()
     L = int(num_layers)
-    p_new = torch.empty(shape, dtype=torch.float32, device=dev)
-    m_new = torch.empty(shape, dtype=torch.float32, device=dev)
-    v_new = torch.empty(shape, dtype=torch.float32, device=dev) \
-        if adam else None
-    cp = torch.empty(shape, dtype=cp_dtype, device=dev)
+    new = lambda dt: torch.empty(shape, dtype=dt, device=dev)  # noqa: E731
+    p_new = p_slab if donate else new(torch.float32)
+    m_new = m_slab if donate else new(torch.float32)
+    v_new = (v_slab if donate else new(torch.float32)) if adam else None
+    if donate and cp_out is not None:
+        _check(cp_out, "cp_out", cp_dtype, shape)
+        cp = cp_out
+    else:
+        cp = new(cp_dtype)
     partials = torch.empty((rows // lib.tri_rows_per_block()) * L,
                            dtype=torch.float32, device=dev)
     pmax = torch.empty((L,), dtype=torch.float32, device=dev)
@@ -292,22 +309,42 @@ def fused_apply_cuda(g_slab, p_slab, m_slab, v_slab, scalars, row_layer,
             ptr(m_new), ptr(v_new), ptr(cp), ptr(partials), ptr(pmax),
             rows, L, torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(rc, "fused_apply")
+    if donate:          # the kernel wrote through raw pointers
+        for t in (p_new, m_new, v_new, cp):
+            if t is not None:
+                torch.autograd.graph.increment_version(t)
     return p_new, m_new, v_new, cp, pmax
 
 
 # ========================================================= helpers ======
+#: rows of the slab ``seed_compute`` widens to f32 at a time (64 MiB)
+SEED_ROWS = 1 << 15
+
+
 def seed_compute(view: SlabView, params, codes: torch.Tensor, ladder: str,
                  cp_dtype, slab: bool = False) -> Dict[str, Any]:
     """Init/reseed the carried compute state: the compute copy the FIRST
     fused step's forward consumes, plus the per-layer param absmax table.
     A one-off pass at trainer init; every later copy comes from the apply
-    kernel. With ``slab=True`` the copy stays in slab form."""
-    cw = view.pack(params, cp_dtype).float()
-    ids = view.row_blocks(cw.device).reshape(-1).long()
-    p_amax = _segment_max(cw.abs().amax(dim=1), ids, view.num_layers)
+    kernel. ``params`` is the tree or its f32 master slab; with
+    ``slab=True`` the copy stays in slab form. The container cast is
+    widened to f32 ``SEED_ROWS`` rows at a time (an elementwise pass and a
+    max, so the result is the one-pass result bit for bit), so the pass
+    needs no f32 temporaries the size of the model."""
+    src = params if isinstance(params, torch.Tensor) else \
+        view.pack(params, cp_dtype)
+    dev, rows = src.device, src.shape[0]
+    chunks = [slice(r, min(r + SEED_ROWS, rows))
+              for r in range(0, rows, SEED_ROWS)]
+    widened = lambda sl: src[sl].to(cp_dtype).float()      # noqa: E731
+    row_max = torch.cat([widened(sl).abs().amax(dim=1) for sl in chunks])
+    ids = view.row_blocks(dev).reshape(-1).long()
+    p_amax = _segment_max(row_max, ids, view.num_layers)
     code_r = view.gather_rows(codes).reshape(-1, 1)
     qs_r = view.gather_rows(cast_scales(p_amax)).reshape(-1, 1)
-    cp = _tier_select(cw, code_r, qs_r, ladder).to(cp_dtype)
+    cp = torch.empty((rows, SLAB_N), dtype=cp_dtype, device=dev)
+    for sl in chunks:
+        cp[sl] = _tier_select(widened(sl), code_r[sl], qs_r[sl], ladder)
     if slab:
         return {"slab": cp, "p_amax": p_amax}
     return {"tree": view.unpack(cp, like=params), "p_amax": p_amax}

@@ -149,12 +149,20 @@ class SlabView:
     def pack(self, tree, dtype=torch.float32) -> torch.Tensor:
         """Assemble the (rows, SLAB_N) slab; ragged leaves and the tail pad
         with zeros (absorbing for every fused-update statistic)."""
-        leaves = tu.leaves(tree)
+        return self.pack_consuming(tu.leaves(tree), dtype)
+
+    def pack_consuming(self, leaves: list, dtype=torch.float32
+                       ) -> torch.Tensor:
+        """``pack`` of the tree's flat leaf list, emptied as it goes: a
+        leaf the caller holds nowhere else is freed once it is copied, so
+        a model's tree and its slab are never whole together."""
         dev = next(x.device for x in leaves)
         out = torch.zeros((self.rows, SLAB_N), dtype=dtype, device=dev)
-        for slot, x in zip(self.slots, leaves):
+        for slot in self.slots:
+            x = leaves.pop(0)
             if slot.floating:
                 self._leaf_view(out, slot).copy_(x)
+            del x
         return out
 
     def _leaf_view(self, slab: torch.Tensor, slot: _LeafSlot) -> torch.Tensor:

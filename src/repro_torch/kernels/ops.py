@@ -75,13 +75,16 @@ def fused_stats(g_slab, row_layer, num_layers: int):
 
 def fused_apply(g_slab, p_slab, m_slab, v_slab, scalars, row_layer,
                 lr_rows, code_rows, qs_rows, *, spec, ladder, cp_dtype,
-                num_layers, sr: bool = False):
+                num_layers, sr: bool = False, cp_out=None,
+                donate: bool = False):
     """Phase 2 of the fused update: final gradient read -> optimizer step,
     f32 master write, next-step compute copy (``sr=True`` casts it with
     stochastic rounding, seeded from ``scalars[4]``), per-layer param
-    absmax."""
+    absmax. ``donate`` writes the master, the moments and the copy over
+    ``p_slab``, ``m_slab``, ``v_slab`` and ``cp_out`` (the previous copy)
+    instead of fresh slabs."""
     kw = dict(spec=spec, ladder=ladder, cp_dtype=cp_dtype,
-              num_layers=num_layers, sr=sr)
+              num_layers=num_layers, sr=sr, cp_out=cp_out, donate=donate)
     args = (g_slab, p_slab, m_slab, v_slab, scalars, row_layer, lr_rows,
             code_rows, qs_rows)
     if p_slab.device.type == "cpu":

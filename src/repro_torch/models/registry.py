@@ -1,22 +1,38 @@
 """Architecture registry: --arch ids -> config modules and tasks, as
-``repro/models/registry.py``. The port trains and serves ``smollm-135m``
-and trains ``resnet18`` and ``efficientnet_b0``; the other architectures raise
-``NotImplementedError`` until the slice that brings them."""
+``repro/models/registry.py``. ``ARCHITECTURES`` and ``PAPER_ARCHS`` are
+the reference's lists. The port trains and serves the dense LMs in
+``PORTED`` and trains ``resnet18`` and ``efficientnet_b0``; the other
+architectures raise ``NotImplementedError`` until the slice that brings
+them."""
 from __future__ import annotations
 
 import importlib
 from typing import Any, List
 
+ARCHITECTURES = [
+    "qwen2-vl-72b",
+    "smollm-135m",
+    "gemma3-4b",
+    "minitron-4b",
+    "stablelm-1.6b",
+    "deepseek-v2-236b",
+    "deepseek-v2-lite-16b",
+    "mamba2-370m",
+    "seamless-m4t-large-v2",
+    "recurrentgemma-2b",
+]
+
+# the paper's own testbed (vision)
+PAPER_ARCHS = ["resnet18", "efficientnet_b0"]
+
 #: ported architectures -> their config module under ``repro_torch.configs``
-PORTED = {"smollm-135m": "smollm_135m", "resnet18": "resnet18",
-          "efficientnet_b0": "efficientnet_b0"}
+PORTED = {"smollm-135m": "smollm_135m", "gemma3-4b": "gemma3_4b",
+          "minitron-4b": "minitron_4b", "stablelm-1.6b": "stablelm_1_6b",
+          "resnet18": "resnet18", "efficientnet_b0": "efficientnet_b0"}
 
 #: the reference's other architectures and the slice that ports each
 PENDING = {
     "qwen2-vl-72b": "the vlm slice (frontend embeddings, multimodal RoPE)",
-    "gemma3-4b": "the remaining-architectures slice (qk-norm, windows)",
-    "minitron-4b": "the remaining-architectures slice",
-    "stablelm-1.6b": "the remaining-architectures slice",
     "deepseek-v2-236b": "the MLA/MoE slice",
     "deepseek-v2-lite-16b": "the MLA/MoE slice",
     "mamba2-370m": "the SSM slice",
@@ -46,6 +62,12 @@ def get_task(arch: str, reduced: bool = False, device="cuda") -> Any:
     return task_for_config(get_model_config(arch, reduced), device)
 
 
+def list_architectures() -> List[str]:
+    return list(ARCHITECTURES)
+
+
 def list_tasks() -> List[str]:
-    """Every arch the port can run today."""
-    return list(PORTED)
+    """The archs the port can run today, in the reference's order (its
+    ``ARCHITECTURES`` then ``PAPER_ARCHS``); the reference lists every
+    arch, the port only those in ``PORTED``."""
+    return [a for a in ARCHITECTURES + PAPER_ARCHS if a in PORTED]

@@ -1,13 +1,16 @@
-"""Core layers: dense, embedding, RMSNorm, activations, rotary embeddings.
+"""Core layers: dense, embedding, norms, activations, rotary embeddings.
 
 Each mirrors ``repro/nn/layers.py`` on bare tensors in the reference's
 layouts; floating math stays in the input's dtype except where the
-reference widens (RMSNorm and RoPE compute in f32 and cast back).
-Multimodal RoPE, LayerNorm and the causal conv wait for the architectures
-that use them.
+reference widens (the norms and RoPE compute in f32 and cast back). The
+activations repeat the reference's operations in its order, one rounding
+to the input's dtype each, with its constants rounded to that dtype first.
+Multimodal RoPE and the causal conv wait for the architectures that use
+them.
 """
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
@@ -62,18 +65,64 @@ def rmsnorm(p, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     return (x * (1.0 + p["scale"].float())).to(dt)
 
 
+def layernorm_init(gen, dim: int, device="cpu"):
+    del gen
+    return {"scale": param(None, (dim,), "ones", device=device),
+            "bias": param(None, (dim,), "zeros", device=device)}
+
+
+def layernorm(p, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    dt = x.dtype
+    x = x.float()
+    mu = x.mean(dim=-1, keepdim=True)
+    c = x - mu
+    var = (c * c).mean(dim=-1, keepdim=True)    # jnp.var: mean of squares
+    x = c * torch.rsqrt(var + eps)
+    return (x * p["scale"].float() + p["bias"].float()).to(dt)
+
+
 # ----------------------------------------------------------- activations ---
+def _const(value: float, x: torch.Tensor) -> torch.Tensor:
+    """``value`` rounded to ``x``'s dtype, as the reference's constants
+    are (a 0-d tensor, so the product rounds once in that dtype)."""
+    return torch.tensor(value, dtype=x.dtype)
+
+
 def _silu(x):
-    # x * sigmoid(x), each rounded to x's dtype, as the reference computes
-    return x * torch.sigmoid(x)
+    # x * logistic(x), the logistic as XLA expands it: 1 / (1 + exp(-x))
+    return x * (1.0 / (1.0 + torch.exp(-x)))
+
+
+def _relu(x):
+    # jnp.maximum(x, 0) (NaN passes); the gradient at 0 is 0, as jax's
+    return torch.relu(x)
+
+
+def _relu2(x):
+    r = _relu(x)
+    return r * r                        # jnp.square: one product
+
+
+def _gelu_tanh(x):
+    """``jax.nn.gelu(x, approximate=True)`` operation by operation: the
+    cube as ``x * x * x``, the constants in x's dtype (bf16: 0.0446777
+    and 0.796875). ``torch.nn.functional.gelu`` rounds otherwise."""
+    cube = x * x * x
+    inner = _const(math.sqrt(2.0 / math.pi), x) * (
+        x + _const(0.044715, x) * cube)
+    return x * (0.5 * (1.0 + torch.tanh(inner)))
+
+
+#: the reference's activations; its "gelu" is jax.nn.gelu's default, the
+#: tanh form, so it and "gelu_tanh" are one function
+_ACTIVATIONS = {"silu": _silu, "gelu": _gelu_tanh, "relu": _relu,
+                "relu2": _relu2, "gelu_tanh": _gelu_tanh}
 
 
 def activation(name: str):
-    """The FFN activation; the ported architectures use SiLU (gelu, relu
-    and relu2 come with the architectures that use them)."""
-    if name != "silu":
-        raise NotImplementedError(f"activation {name!r} is not ported yet")
-    return _silu
+    """The FFN activation by the reference's name (a ``KeyError`` for any
+    other, as the reference's table)."""
+    return _ACTIVATIONS[name]
 
 
 # ------------------------------------------------------------------ rope ---

@@ -161,8 +161,15 @@ class ServeSession:
         """Run every (rung, tier) path once and copy each one's measured
         bytes into the rung controller; returns the paths warmed."""
         n = self.engine.warm()
-        self._refresh_overlay()
+        self.sync_measured()
         return n
+
+    def sync_measured(self) -> None:
+        """Copy the engine's measured bytes into the memory model's (rung,
+        tier) overlay. The reference re-harvests its executables' memory
+        analysis first; the port's engine measures each path's peak as it
+        runs it, so there is nothing to re-harvest."""
+        self._refresh_overlay()
 
     def _refresh_overlay(self) -> None:
         for rung in self.engine.rungs:

@@ -19,8 +19,10 @@ reach the stack) and the serving hooks that ``repro_torch.serve`` drives:
 
 while ``VisionTask`` serves through cache-free batched inference
 (``infer(params, aux_state, batch)``); ``serves_tokens`` tells the two
-apart. Both derive from ``TrainTask``, whose serving hooks raise for a
-task that lacks them, as the reference's base does.
+apart. Both derive from ``TrainTask``, whose model, data and serving
+hooks raise for a task that lacks them, and which shares the flat
+``memory_model`` and the ``curvature_loss``, as the reference's base
+does.
 """
 from __future__ import annotations
 
@@ -62,10 +64,13 @@ def apply_codes(params, codes, qdq_fn, keys):
 
 class TrainTask:
     """The base of the tasks (``cfg`` and ``device`` fields in each
-    subclass): the static hooks they share and the reference's serving
-    defaults. A task that serves tokens overrides ``init_cache``/
-    ``prefill``/``decode``; a cache-free one sets ``serves_tokens`` False
-    and overrides ``infer``; the hooks it lacks raise."""
+    subclass), as the reference's: the model and data hooks (``init``,
+    ``loss``, ``grouping``, ``data_stream``) raise until a subclass
+    gives them; the static hooks, the flat ``memory_model`` and the
+    ``curvature_loss`` are shared. A task that serves tokens overrides
+    ``init_cache``/``prefill``/``decode``; a cache-free one sets
+    ``serves_tokens`` False and overrides ``infer``; the hooks it lacks
+    raise."""
 
     cfg: Any
     device: Any
@@ -76,6 +81,36 @@ class TrainTask:
     def __post_init__(self):
         self.device = resolve_device(self.device)
 
+    # ------------------------------------------------------------ model ---
+    def init(self, gen: torch.Generator, device=None):
+        """-> (params, aux_state); aux_state is {} when the model carries
+        no non-differentiated state. ``device`` overrides the task's (e.g.
+        ``"meta"`` for shapes only)."""
+        raise NotImplementedError
+
+    def loss(self, params, aux_state, batch, codes, qdq_fn):
+        """-> (scalar loss, new_aux_state, metrics dict). ``codes`` /
+        ``qdq_fn`` are the §3.1 precision actuation; ``qdq_fn is None``
+        means static precision (no rounding)."""
+        raise NotImplementedError
+
+    def grouping(self, params):
+        """-> the ``LayerGrouping`` (the (L,) layer view of the
+        controller)."""
+        raise NotImplementedError
+
+    # ------------------------------------------------------------- data ---
+    def data_stream(self, global_batch: int, seed: int = 0,
+                    seq_len: int = 1):
+        """The Trainer always passes ``seq_len``; tasks without a sequence
+        dimension ignore it."""
+        raise NotImplementedError
+
+    def eval_stream(self, global_batch, seed=0):
+        """Held-out stream (the train stream unless overridden)."""
+        return self.data_stream(global_batch, seed)
+
+    # ---------------------------------------------------- static hooks ----
     @property
     def name(self) -> str:
         return self.cfg.name
@@ -92,9 +127,22 @@ class TrainTask:
         """The slice of the (L,) control codes the loss consumes."""
         return codes
 
-    def eval_stream(self, global_batch, seed=0):
-        """Held-out stream (the train stream unless overridden)."""
-        return self.data_stream(global_batch, seed)
+    def memory_model(self, params, opt_slots: int, mesh_size: int = 1):
+        """Per-device memory model for the §3.3 batch controller: a flat
+        one over the parameter count."""
+        from repro_torch.core.batch_scaler import MemoryModel
+        n = sum(int(x.numel()) for x in tu.leaves(params))
+        return MemoryModel(param_count=n / mesh_size, opt_slots=opt_slots)
+
+    def curvature_loss(self, params, aux_state, batch) -> torch.Tensor:
+        """Scalar loss for the §3.2 curvature probes (no QDQ, no loss
+        scale), on the chunked attention paths as the reference pins it
+        (``flash_fallback``: its forward-mode probes cannot cross the
+        kernel's custom_vjp). The probe batches are b_curv-sized, so the
+        fallback costs little, and the probe launches no attention
+        kernel."""
+        with ops.flash_fallback():
+            return self.loss(params, aux_state, batch, None, None)[0]
 
     # --------------------------------------------------------- serving ----
     def init_cache(self, batch, total_len: int, dtype=torch.bfloat16,
@@ -186,10 +234,6 @@ class VisionTask(TrainTask):
         from repro_torch.train.paper_harness import vision_memory_model
         return vision_memory_model(self.cfg, params)
 
-    def curvature_loss(self, params, aux_state, batch) -> torch.Tensor:
-        """Scalar loss for the §3.2 curvature probes (no loss scale)."""
-        return self.loss(params, aux_state, batch, None, None)[0]
-
     # --------------------------------------------------------- serving ----
     @torch.no_grad()
     def infer(self, params, aux_state, batch):
@@ -254,16 +298,6 @@ class LMTask(TrainTask):
         return MemoryModel.for_transformer(
             n / mesh_size, self.cfg.d_model, self.cfg.num_layers,
             opt_slots=opt_slots, remat=self.cfg.stack.remat)
-
-    def curvature_loss(self, params, aux_state, batch) -> torch.Tensor:
-        """Scalar loss for the §3.2 curvature probes (no loss scale), on
-        the chunked attention path as the reference pins it
-        (``flash_fallback``: its forward-mode probes cannot cross the
-        kernel's custom_vjp). The probe batches are b_curv-sized, so the
-        fallback costs little, and the probe launches no attention
-        kernel."""
-        with ops.flash_fallback():
-            return self.loss(params, aux_state, batch, None, None)[0]
 
     # --------------------------------------------------------- serving ----
     def init_cache(self, batch, total_len: int, dtype=torch.bfloat16,

@@ -189,12 +189,17 @@ def _layer_counts(grouping):
 def make_train_step(task, tac: TriAccelConfig, opt: Optimizer, grouping,
                     schedule: Callable, accum: int = 1,
                     grad_clip: float = 0.0, fused_update=None,
-                    resident_params=None):
+                    resident_params=None, donate: bool = False):
     """Returns ``step(state, batch) -> (state, metrics)``: ``reference_step``
     over tree-form state when ``fused_update`` is False (None resolves by
     ``resolve_fused``), else ``resident_step`` over slab-resident state,
     whose layout ``resident_params`` (a params-shaped tree; meta tensors
-    do) fixes."""
+    do) fixes. ``donate`` (the reference jits its step with the state
+    donated): the resident step's fused apply writes the new master,
+    moments and compute copy over the given state's slabs, so a caller
+    must not read that state again. The apply is the step's last
+    allocation of any size: an out-of-memory error raised inside the step
+    leaves the state intact."""
     if fused_update is None:
         fused_update = resolve_fused(opt, tac)
     if fused_update and opt.spec is None:
@@ -271,7 +276,8 @@ def make_train_step(task, tac: TriAccelConfig, opt: Optimizer, grouping,
             r_view.gather_rows(_cast_codes(task, grouping, control2.codes)),
             r_view.gather_rows(cast_scales(compute["p_amax"])),
             spec=spec, ladder=tac.ladder, cp_dtype=task.compute_dtype,
-            num_layers=L, sr=tac.stochastic_round)
+            num_layers=L, sr=tac.stochastic_round, cp_out=compute["slab"],
+            donate=donate)
 
         if spec.kind == "adamw":
             opt_state2 = {"m": m_new, "v": v_new,

@@ -65,9 +65,11 @@ from repro_torch.resilience.recovery import (DivergenceError,
                                              DivergenceWatchdog,
                                              RecoveryConfig)
 from repro_torch.train.schedules import warmup_cosine
-from repro_torch.train.train_step import (TrainState, init_compute,
-                                          make_train_step, pack_state,
-                                          resolve_fused, unpack_state)
+from repro_torch.kernels.fused_update import seed_compute
+from repro_torch.train.train_step import (TrainState, _cast_codes,
+                                          init_compute, make_train_step,
+                                          pack_state, resolve_fused,
+                                          unpack_state)
 
 
 @dataclasses.dataclass
@@ -147,18 +149,17 @@ class Trainer:
         self._step_fn = make_train_step(
             task, tac, opt, self.grouping, schedule, accum=tcfg.accum,
             grad_clip=tcfg.grad_clip, fused_update=self.fused,
-            resident_params=self._params_like if self.resident else None)
+            resident_params=self._params_like if self.resident else None,
+            donate=self.resident)
         control = init_control(self.grouping.num_layers, tac, self.device)
         if self.resident:
-            compute = init_compute(task, params, self.grouping, control, tac)
-            state = TrainState(params, aux_state, opt.init(params), control,
-                               compute)
-            self.state = pack_state(self.view, state, task.compute_dtype)
+            leaves, params = tu.leaves(params), None
+            self.state = self._resident_state(leaves, aux_state, control)
         else:
             self.state = TrainState(params, aux_state, opt.init(params),
                                     control, ())
 
-        mm = task.memory_model(params, opt_slots=opt.slots)
+        mm = task.memory_model(self._params_like, opt_slots=opt.slots)
         self.scaler = BatchScaler(tcfg.rungs,
                                   task.tokens_per_sample(tcfg.seq_len), mm,
                                   tac, start_rung=tcfg.start_rung)
@@ -176,6 +177,30 @@ class Trainer:
                           if tcfg.recovery.watchdog else None)
         self.oom_events: list = []       # (step, rung) per caught OOM
         self.rollback_events: list = []  # (diverged_step, restored_step)
+
+    def _state_versions(self) -> list:
+        """The version counters of the state's tensors: an in-place write
+        (the donated apply's) moves them."""
+        return [t._version for t in tu.leaves(self.state)
+                if isinstance(t, torch.Tensor)]
+
+    def _resident_state(self, leaves: list, aux_state, control
+                        ) -> TrainState:
+        """The slab-resident state from the params tree's flat ``leaves``
+        (emptied here), equal to ``pack_state`` of the tree-form one but
+        built without a second copy of the model: the master slab first
+        (each leaf goes once packed), then the compute copy and the
+        per-layer absmax from it (``seed_compute`` on the slab), the
+        moments as zero slabs. A 4 B-parameter model's tree (16 GB in
+        f32) beside its slabs and the tree-form moments and copy would not
+        fit one card."""
+        p_slab = self.view.pack_consuming(leaves, torch.float32)
+        compute = seed_compute(
+            self.view, p_slab, _cast_codes(self.task, self.grouping,
+                                           control.codes),
+            self.tac.ladder, self.task.compute_dtype, slab=True)
+        opt_state = self.opt.init(p_slab)
+        return TrainState(p_slab, aux_state, opt_state, control, compute)
 
     # ------------------------------------------------------------- utils --
     def params_tree(self):
@@ -363,14 +388,19 @@ class Trainer:
         so that the retry's convolutions run the algorithms a fresh run's
         do.
 
-        The reference checks that a failed dispatch did not consume its
-        donated state buffers. Here nothing is donated: the step builds new
-        tensors, and ``fused_apply`` writes its outputs to fresh ones, so
-        the state a failed attempt read is intact for the retry and the
-        rescue checkpoint."""
+        The resident step donates its slabs, as the reference's jitted
+        step does: the fused apply writes the new master, moments and
+        compute copy over them. It is the step's last allocation of any
+        size, so an out-of-memory error (real, or the fault's, raised
+        before the step) lands before it and the state is intact for the
+        retry and the rescue checkpoint. Where a failed attempt did write
+        over its state (the slabs' version counters moved), the error
+        re-raises at once with no rescue checkpoint, as the reference's
+        ``_state_alive`` check does."""
         err: Optional[BaseException] = None
         for _ in range(self.tcfg.recovery.max_oom_retries + 1):
             rung = self.scaler.microbatch
+            versions = self._state_versions()
             try:
                 if self.fault_plan is not None and self.fault_plan.fires(
                         "train.step_oom", step, rung=rung):
@@ -394,6 +424,11 @@ class Trainer:
                 release_failed_attempt(e, self.device)
                 err = e
                 self.oom_events.append((step, rung))
+                if self._state_versions() != versions:
+                    # the failed attempt wrote over its donated state:
+                    # nothing to retry with; restart from the last
+                    # checkpoint, as the reference's _state_alive
+                    raise
                 if self.scaler.mark_oom(rung) == rung:
                     break                   # smallest rung OOM'd: escalate
         if self.ckpt:

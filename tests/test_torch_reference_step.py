@@ -14,9 +14,9 @@ the reference package on the same numpy inputs:
     order); ``sgdm``/``adamw`` ``update``, ``apply_updates`` and
     ``global_norm`` on random trees with per-leaf and scalar learning
     rates: the sgdm update, moments and masters bitwise (one rounding per
-    operation on both sides); adamw within rtol 1e-6 (``b ** t`` and
-    ``sqrt`` from two libraries, measured equal here); the norm within
-    rtol 1e-6;
+    operation on both sides); adamw's moments within rtol 1e-6 and its
+    masters within rtol 1e-6 plus 2^-22 of the three updates' summed
+    magnitudes (``ADAMW_MASTER_BOUND``); the norm within rtol 1e-6;
   * one ``reference_step`` of ResNet-18 (batch 2) and of the reduced LM
     (``flash_test_config(2)``, S 256, B 2), carried from the reference's
     state: the FP32 / static baseline (no QDQ), dynamic precision with
@@ -189,6 +189,27 @@ def test_moment_stats_matches_reference(layer_axis):
 
 
 # ---------------------------------------------------------- optimizers ---
+#: Why adamw's masters need more than rtol 1e-6. The bias corrections
+#: c = 1 - b ** t come from two libraries' ``pow`` (XLA's and libm's
+#: through torch). Both round 0.9 ** t and 0.95 ** t correctly in most
+#: hosts' runs, and the two packages then agree bitwise here. One run on
+#: another host failed at one element, 1.15e-6 relative, and only with
+#: per-leaf rates. Measured with an f32 emulation of the update (one rounding
+#: an operation, bitwise the port's) and exact rationals: f32(0.95) ** 3 =
+#: 0.857374967724 exactly, 0.0265 of an ulp above the f32 below it, so a
+#: correctly rounded c2 at step 3 is 0.14262503 (the port's). A pow one ulp
+#: high there gives c2 = 0.14262497. That change alone moves exactly one
+#: master over rtol 1e-6: ``b[1, 2]``, by 1.49e-8 = 1.146e-6 of its
+#: -0.0130016. Its three updates sum to 0.583 in magnitude and cancel to
+#: that value, which amplifies one ulp of an update 45 times. So a
+#: bias correction one ulp off moves an update by at most ~2^-23 of
+#: itself, and a master by at most 2^-22 of its updates' summed magnitudes.
+#: Over all twelve one-ulp changes of c1 or c2 at any step, the largest
+#: error is 0.39 of that bound with per-leaf rates and 0.19 with the
+#: scalar rate. The moments take no c and stay within rtol 1e-6.
+ADAMW_MASTER_BOUND = 2.0 ** -22
+
+
 def _opt_inputs(seed):
     rng = np.random.default_rng(seed)
     shapes = {"w": (3, 5, 4), "b": (3, 4), "u": {"x": (6,)}}
@@ -212,6 +233,7 @@ def test_tree_optimizer_matches_reference(name, per_leaf):
     jp = jax.tree.map(jnp.asarray, params)
     pp = bridge.tree(params)
     jstate, pstate = jo.init(jp), po.init(pp)
+    moved = [np.zeros(np.shape(x), np.float64) for x in tu.leaves(pp)]
     for step in range(3):                 # moments carried over 3 steps
         g = jax.tree.map(lambda x: x * (step + 1), grads)
         lr = lr_tree if per_leaf else np.float32(0.03)
@@ -221,13 +243,21 @@ def test_tree_optimizer_matches_reference(name, per_leaf):
                                bridge.tree(lr) if per_leaf
                                else torch.tensor(0.03))
         jp, pp = jopt.apply_updates(jp, ju), opt.apply_updates(pp, pu)
+        moved = [s + np.abs(_np(u)) for s, u in zip(moved, tu.leaves(pu))]
     pairs = [(tu.leaves(pp), jax.tree.leaves(jp))]
     for k in ("mu", "m", "v"):
         if k in jstate:
             pairs.append((tu.leaves(pstate[k]), jax.tree.leaves(jstate[k])))
-    for got, want in pairs:
-        for a, b in zip(got, want):
-            if name == "adamw":
+    for i, (got, want) in enumerate(pairs):
+        for j, (a, b) in enumerate(zip(got, want)):
+            if name == "adamw" and i == 0:
+                # the masters: rtol 1e-6 plus the bias corrections' ulp
+                # (ADAMW_MASTER_BOUND), 2^-22 of the updates' magnitudes
+                err = np.abs(_np(a).astype(np.float64) - np.asarray(b))
+                bnd = (1e-6 * np.abs(np.asarray(b))
+                       + ADAMW_MASTER_BOUND * moved[j])
+                assert (err <= bnd).all(), (j, float((err / bnd).max()))
+            elif name == "adamw":
                 np.testing.assert_allclose(_np(a), np.asarray(b), rtol=1e-6)
             else:
                 np.testing.assert_array_equal(_np(a), np.asarray(b))

@@ -14,8 +14,10 @@ What must hold:
     port-written generation into the same bytes;
   * the reference's trainer cases (``tests/test_resilience.py``) hold for
     the port; OOM recovery is bitwise the fault-free oracle at the smaller
-    rung, also when the OOM strikes after the step computed its outputs
-    (nothing is donated, so the state is intact for the retry);
+    rung, also when the OOM strikes after a step computed its outputs
+    without writing over its state; the resident step donates its slabs,
+    as the reference's, and an OOM after it wrote over them re-raises
+    (the reference's ``_state_alive``);
   * a skipped (burst) step keeps the master and momentum slabs and the
     BatchNorm-style aux state bitwise, and the demotion survives a
     checkpoint;
@@ -258,11 +260,16 @@ def test_oom_recovery_matches_fault_free_oracle():
     assert int(faulted.state.control.step) == int(oracle.state.control.step)
 
 
-def test_oom_after_the_step_computed_leaves_the_state_intact():
-    """An OOM raised after the step ran (its kernels wrote their outputs):
-    nothing was donated, so the retry finds the trainer's state bitwise
-    what the failed attempt was given, and ends bitwise where the
-    fault-free oracle ends."""
+def test_oom_after_the_step_computed_leaves_the_state_intact(tmp_path):
+    """An OOM raised after a step computed its outputs. Where the step did
+    not write over the state it was given (here: the step run on a copy),
+    the retry finds the trainer's state bitwise what the failed attempt
+    was given, and ends bitwise where the fault-free oracle ends. The
+    resident trainer's own step donates its slabs (as the reference jits
+    its step with the state donated): an OOM after its fused apply wrote
+    over them re-raises at once, recorded, with no retry and no rescue
+    checkpoint (the state is gone), as the reference's ``_state_alive``
+    check does."""
     faulted = _trainer(rungs=(2, 4), start_rung=4, total=3)
     oracle = _trainer(rungs=(2,), total=3)
     step_fn, seen = faulted._step_fn, {}
@@ -270,7 +277,7 @@ def test_oom_after_the_step_computed_leaves_the_state_intact():
     def late_oom(state, batch):
         if int(batch["tokens"].shape[0]) == 4:
             seen["given"] = _snap(state)
-            step_fn(state, batch)
+            step_fn(tu.tree_map(torch.clone, state), batch)
             raise torch.OutOfMemoryError("CUDA out of memory (late)")
         if "given" in seen and "retry" not in seen:
             seen["retry"] = _snap(state)
@@ -281,6 +288,20 @@ def test_oom_after_the_step_computed_leaves_the_state_intact():
     assert faulted.oom_events == [(0, 4)]
     _assert_bitwise(seen["retry"], seen["given"])
     _assert_bitwise(_host(faulted), _host(oracle))
+
+    donated = _trainer(tmp_path, rungs=(2, 4), start_rung=4, total=3)
+    assert donated.resident
+    step_d = donated._step_fn
+
+    def consumed(state, batch):
+        step_d(state, batch)            # writes over the given slabs
+        raise torch.OutOfMemoryError("CUDA out of memory (late)")
+    donated._step_fn = consumed
+    with pytest.raises(torch.OutOfMemoryError):
+        donated.run()
+    assert donated.oom_events == [(0, 4)]
+    assert donated.scaler.microbatch == 4          # no step-down, no retry
+    assert ck.latest_step(str(tmp_path)) is None    # no rescue checkpoint
 
 
 def test_oom_on_smallest_rung_escalates(tmp_path):
