@@ -237,26 +237,57 @@ Phases (any failure raises and the script exits non-zero):
      1024), flash_decode at B 4 against its full-length serving cache
      (rep 1 / D 64, rep 3 / D 128, rep 2 / D 256; gemma3-4b's local
      layers' plain decode attention on its 1024-slot ring timed too), and
-     fused_stats / fused_apply on the model's whole training slab (1.6-4.2
+     fused_stats / fused_apply on the model's whole training slab (1.6-2.1
      B elements; the plain versions chunk by chunk, the apply donated,
-     bitwise); then training at full width and depth through
-     ``launch.train.main --arch ... --mem-cap-gb 80`` (``DENSE_STEPS``
+     bitwise); then training at full width through
+     ``launch.train.main --arch ... --mem-cap-gb 80`` at the depth of
+     ``DENSE_DEPTH`` (stablelm-1.6b's full 24 layers, minitron-4b and
+     gemma3-4b 16 since PR 32, their full depth in PR 31) (``DENSE_STEPS``
      steps, rungs 1/2, S 1024, gemma3-4b S 2048; the seconds of
      ``task.init``, the peak), its launches exact (the forward 2 x L a
      step on the tensor cores, delta, dQ and dK/dV L a step, one fused
      update a step); the two-pass qdq_cast on the trained model's largest
      leaf (786 M elements for minitron-4b) bitwise; serving the trained
      weights (``ServeSession(params=...)``, the trainer freed first) at
-     full width and depth, rungs 1/2/4, tiers 1 then 0, six requests of 32
-     tokens, prompt 1024 and cache 2048 (gemma3-4b 2048 and 4096: its
+     full width and that depth, rungs 1/2/4, tiers 1 then 0, six requests
+     of 32 tokens, prompt 1024 and cache 2048 (gemma3-4b 2048 and 4096: its
      local layers' rings wrap at prefill and again while decoding), its
      launches exact (the forward L a prefill on the tensor cores,
-     flash_decode once a decode step for each unwindowed layer: 24, 32,
-     5; a two-pass cast a leaf), a decode step profiled (gemma3-4b: the
-     29 local layers' share of its device time); then a prefill and 4
+     flash_decode once a decode step for each unwindowed layer: 24, 16,
+     2; a two-pass cast a leaf), a decode step profiled (gemma3-4b: the
+     14 local layers' share of its device time); then a prefill and 4
      teacher-forced decode steps of the trained weights' first layers
      (2; gemma3-4b one period, 5 local and 1 global, prompt 1280) on the
-     card against the CPU, logits within 4 %.
+     card against the CPU, logits within 4 %;
+ 13. MLA and MoE: deepseek-v2-lite-16b (``MOE``), its seconds and the
+     phase's printed: first its kernels at its shapes against their plain
+     versions, timed beside them, SDPA and the bounds: the tensor-core
+     forward with the LSE and the three backward kernels at B 2, S 1024,
+     16 heads, D 192 (128 nope + 64 rope) and Dv 128, and fused_stats /
+     fused_apply on the cut model's training slab (4.6 B elements,
+     bitwise, donated); then training at full width, cut in depth to the
+     dense layer and ``MOE_TRAIN_MOE_LAYERS`` MoE layers (the most whose
+     peak fits), through ``launch.train.main`` with the cut config
+     (``_registry_config``; the launcher has no depth flag): ten steps at
+     rungs 1/2, S 1024, ``task.init`` seconds, the step time and the peak,
+     launches exact (the forward 2 x L a step and delta, dQ and dK/dV L a
+     step on the tensor cores, one fused update a step), the MoE aux
+     terms finite and non-zero, one step profiled; then the full model's
+     f32 masters (15.7 B parameters, 62.8 GB) drawn on the card's
+     generator into host memory; the two-pass qdq_cast of one stacked
+     expert leaf (26, 64, 2048, 1408), 4.8 G elements, bitwise against
+     the plain version layer by layer under the leaf's one absmax;
+     serving at full width and depth, 27 layers, one session a tier (tier
+     1, then tier 0: two bf16 sets and a cast's f32 leaf do not fit the
+     card together), each set built leaf by leaf from the host masters,
+     rungs 1/2/4, six requests of 32 tokens, prompt 1024, cache 2048, its
+     launches exact (the forward L a prefill on the tensor cores, no
+     flash_decode: MLA decodes in the absorbed form, a two-pass cast a
+     leaf of the tier-0 set), a decode step profiled and the MoE layer's
+     and its dispatch's share of it; then a prefill and 4 teacher-forced
+     decode steps through layers 0 (dense) and 1 (MoE) on the card
+     against the CPU: the chosen experts equal except at near-ties
+     (counted), logits within 4 %.
 
 A kernel that runs on several main paths at different shapes
 (fused_stats and fused_apply: ResNet-18, EfficientNet-B0 and LM training;
@@ -299,7 +330,9 @@ tier-0 vision weight sets, timed over both models' leaves. Phase 12 adds
 ``DENSE_ROWS``: the launches of that model's training and serving paths
 (the forward: both), the times at that model's shapes
 (``window_1024_ms``: gemma3-4b's windowed shape; ``flash_decode`` with
-``local_layer_device_ms`` and ``local_layers_share``).
+``local_layer_device_ms`` and ``local_layers_share``). Phase 13 adds
+``<kernel>@deepseek-v2-lite-16b`` for each of ``MOE_ROWS`` the same way
+(no ``flash_decode``: MLA's decode launches none).
 ``qdq_cast`` is the two-pass form the serving path launches,
 ``qdq_cast_one_pass`` the one-pass form the LM path's tier-0 set launches, both timed over the 11 leaves, f32 in
 and bf16 out as those paths cast (``f32_out_*``: the same with f32 out).
@@ -4804,10 +4837,44 @@ DENSE_CPU_TOTAL = 2048
 DENSE_STEPS, DENSE_RUNGS, DENSE_MEM_CAP_GB = 10, "1,2", 80
 #: serving: requests of this many tokens, four up front and two later
 DENSE_REQUESTS, DENSE_TOKENS = 6, 32
+#: phase 12 trains and serves minitron-4b and gemma3-4b at half depth, 16
+#: layers (minitron-4b's first 16; gemma3-4b two periods of 5 local + 1
+#: global, then its 4 local), so the script keeps inside its clock on a
+#: slow host (at full depth it took 740.7-971.2 s on an H100 80GB HBM3,
+#: PR 32); their full-depth numbers are PR 31's (PERF.md section 6)
+DENSE_DEPTH = {"minitron-4b": 16, "gemma3-4b": 2}
 #: the kernels' launches that phase 12 reports per model (its rows)
 DENSE_ROWS = ("flash_attention", "flash_attention_bwd_delta",
               "flash_attention_bwd_dq", "flash_attention_bwd_dkv",
               "flash_decode", "fused_stats", "fused_apply", "qdq_cast")
+
+
+def _dense_depth(cfg, arch: str):
+    """The config phase 12 trains and serves: ``cfg`` with its first
+    segment repeated ``DENSE_DEPTH[arch]`` times (the full config for the
+    others)."""
+    n = DENSE_DEPTH.get(arch)
+    if n is None:
+        return cfg
+    (first, _), *rest = cfg.stack.segments
+    return dataclasses.replace(cfg, stack=dataclasses.replace(
+        cfg.stack, segments=((first, n), *rest)))
+
+
+@contextlib.contextmanager
+def _registry_config(arch: str, cfg):
+    """``registry.get_model_config(arch)`` gives ``cfg`` inside, so the
+    launcher's own code trains the cut model."""
+    from repro_torch.models import registry
+    orig = registry.get_model_config
+
+    def get(a, reduced=False):
+        return cfg if a == arch and not reduced else orig(a, reduced)
+    registry.get_model_config = get
+    try:
+        yield
+    finally:
+        registry.get_model_config = orig
 
 
 def _dense_cut(cfg, arch: str):
@@ -4836,31 +4903,48 @@ def _pairs(B, H, S, window=0) -> float:
     return B * H * (w * (w + 1) / 2 + (S - w) * w)
 
 
+def _attn_dims(cfg):
+    """(heads, kv heads, q/k head dim, v head dim) of a model's attention:
+    GQA's, or MLA's split head dims (nope + rope for q and k, its own for
+    v; k carries every head)."""
+    m = cfg.stack.mla
+    if m is not None:
+        return (m.num_heads, m.num_heads, m.qk_nope_dim + m.qk_rope_dim,
+                m.v_head_dim)
+    a = cfg.stack.attn
+    return a.num_heads, a.num_kv_heads, a.head_dim, a.head_dim
+
+
 def _dense_attention(cfg, spec, dev, bw, tc_rate) -> dict:
     """The flash forward and its three backward kernels against their
-    plain versions at the model's training shape (B 2, its S, its heads,
-    causal, bf16; gemma3-4b's local layers' window too), timed beside the
-    plain versions, SDPA and the bounds. The global shape's numbers fill
-    the rows; the window's are logged and kept as ``window_<w>_ms``."""
+    plain versions at the model's training shape (B 2, its S, its heads
+    and head dims, causal, bf16; gemma3-4b's local layers' window too),
+    timed beside the plain versions, SDPA and the bounds. The global
+    shape's numbers fill the rows; the window's are logged and kept as
+    ``window_<w>_ms``."""
     from repro_torch.kernels import flash_attention as fa
-    a = cfg.stack.attn
-    B, S, H, K, D = 2, spec["seq"], a.num_heads, a.num_kv_heads, a.head_dim
+    B, S = 2, spec["seq"]
+    H, K, D, Dv = _attn_dims(cfg)
     windows = sorted({bd.window for defs, _ in cfg.stack.segments
                       for bd in defs})
     gen = torch.Generator(device=dev).manual_seed(17)
     out = {}
     for w in windows:
         kw = dict(causal=True, window=w)
-        q, k, v, do, o, lse = _bwd_inputs(B, S, H, K, D, D, torch.bfloat16,
+        q, k, v, do, o, lse = _bwd_inputs(B, S, H, K, D, Dv, torch.bfloat16,
                                           dev, gen, **kw)
         o = o.contiguous()           # as the forward kernel writes it
-        what = f"{cfg.name} attention B{B} S{S} {H}/{K} D{D} window {w}"
+        dims = f"D{D}" if D == Dv else f"D{D} Dv{Dv}"
+        what = f"{cfg.name} attention B{B} S{S} {H}/{K} {dims} window {w}"
         err_f = _flash_pair(q, k, v, None, kw, what, "tc")
         route, errs = _bwd_pair(q, k, v, do, o, lse, None, kw, what)
         check(route == "tc", f"{what}: dQ and dK/dV on the tensor cores")
         delta = fa.flash_bwd_delta_ref(o, do)
         pairs = _pairs(B, H, S, w)
-        nq, nkv, nl = B * S * H * D * 2, B * S * K * D * 2, B * H * S * 4
+        # bytes of q (and dq), o (and do), k (and dk), v (and dv), lse
+        nq, no, nk, nv = (B * S * n * d * 2 for n, d in ((H, D), (H, Dv),
+                                                         (K, D), (K, Dv)))
+        nl = B * H * S * 4
         mask = None
         if w:
             i = torch.arange(S, device=dev)
@@ -4878,27 +4962,28 @@ def _dense_attention(cfg, spec, dev, bw, tc_rate) -> dict:
                     q, k, v, with_lse=True, **kw), iters=2, reps=2),
                 time_ms(lambda: _sdpa(q, k, v, **sdpa_kw), iters=10,
                         reps=3),
-                bound(2 * nq + 2 * nkv + nl, pairs * 4 * D, bw, tc_rate)),
+                bound(nq + no + nk + nv + nl, pairs * 2 * (D + Dv), bw,
+                      tc_rate)),
             "dq": (time_ms(lambda: fa.flash_bwd_dq_cuda(
                 q, k, v, do, lse, delta, **kw), iters=10, reps=3),
                 time_ms(lambda: fa.flash_bwd_dq_ref(
                     q, k, v, do, lse, delta, **kw), iters=2, reps=2),
                 lib_bwd,
-                bound(3 * nq + 2 * nkv + 2 * nl, pairs * 6 * D, bw,
-                      tc_rate)),
+                bound(2 * nq + no + nk + nv + 2 * nl,
+                      pairs * 2 * (2 * D + Dv), bw, tc_rate)),
             "dkv": (time_ms(lambda: fa.flash_bwd_dkv_cuda(
                 q, k, v, do, lse, delta, **kw), iters=10, reps=3),
                 time_ms(lambda: fa.flash_bwd_dkv_ref(
                     q, k, v, do, lse, delta, **kw), iters=2, reps=2),
                 lib_bwd,
-                bound(2 * nq + 4 * nkv + 2 * nl, pairs * 8 * D, bw,
-                      tc_rate)),
+                bound(nq + no + 2 * (nk + nv) + 2 * nl,
+                      pairs * 4 * (D + Dv), bw, tc_rate)),
             "delta": (time_ms(lambda: fa.flash_bwd_delta_cuda(o, do),
                               iters=20, reps=3),
                       time_ms(lambda: fa.flash_bwd_delta_ref(o, do), iters=5,
                               reps=2),
                       lib_bwd,
-                      bound(2 * nq + nl, B * S * H * D * 2, bw, tc_rate)),
+                      bound(2 * no + nl, B * S * H * Dv * 2, bw, tc_rate)),
         }
         log(f"  {what}: " + "; ".join(
             f"{n} kernel {ms:.4f} ms, plain {pl:.4f}, "
@@ -5195,7 +5280,8 @@ def _timed_init(records: list):
 
 
 def dense_train(arch: str, spec: dict, device="cuda"):
-    """Train ``arch`` at full width and depth through the launcher:
+    """Train ``arch`` at full width through the launcher (at the depth the
+    registry gives, which phases 12 and 13 cut with ``_registry_config``):
     ``launch.train.main(--arch arch --seq S --rungs 1,2 --steps 10
     --ladder gpu --mem-cap-gb 80)``. Launches exact: the forward 2 x L a
     step on the tensor-core route (forward and remat recompute), delta, dQ
@@ -5263,16 +5349,19 @@ def dense_train(arch: str, spec: dict, device="cuda"):
     return tr, launches, inits[0], wall
 
 
-def dense_serve(arch: str, spec: dict, params, device="cuda") -> dict:
-    """``ServeSession(params=...)`` over the trained weights at full width
-    and depth: prompt and cache from ``spec``, rungs 1/2/4, tiers 1 then 0
-    (tpu ladder: the tier-0 set two-pass), ``DENSE_REQUESTS`` requests of
-    ``DENSE_TOKENS`` tokens, four up front and the rest after three steps,
-    tier 0 pinned after 8 decode steps. Launches exact: the flash forward
-    L a prefill on the tensor-core route, flash_decode once a decode step
-    for each layer whose cache the decode kernel takes (unwindowed;
-    gemma3-4b's 5 global layers, its 29 local ones on the plain path), a
-    two-pass qdq_cast a leaf; no fallback. Then one decode step profiled."""
+def dense_serve(arch: str, spec: dict, params, device="cuda",
+                tiers=(0, 1)) -> dict:
+    """``ServeSession(params=...)`` over the given weights at full width
+    and depth: prompt and cache from ``spec``, rungs 1/2/4, ``tiers`` (tiers
+    1 then 0, tier 0 pinned after 8 decode steps; tpu ladder: the tier-0
+    set two-pass), ``DENSE_REQUESTS`` requests of ``DENSE_TOKENS`` tokens,
+    four up front and the rest after three steps. Launches exact: the flash
+    forward L a prefill on the tensor-core route, flash_decode once a
+    decode step for each GQA layer whose cache the decode kernel takes
+    (unwindowed; gemma3-4b's 5 global layers, its 29 local ones on the
+    plain path; none for MLA, whose decode is the absorbed form), a
+    two-pass qdq_cast a leaf of a tier-0 set; no fallback. Then three
+    decode steps profiled."""
     import warnings
     from repro_torch import tree as tu
     from repro_torch.kernels import ops
@@ -5280,12 +5369,15 @@ def dense_serve(arch: str, spec: dict, params, device="cuda") -> dict:
     from repro_torch.serve import ServeConfig, ServeSession
     task = get_task(arch, device=device)
     L, vocab = task.cfg.num_layers, task.cfg.vocab_size
-    n_flash = sum(n * sum(1 for bd in defs if not bd.window)
+    n_flash = sum(n * sum(1 for bd in defs
+                          if bd.kind == "gqa" and not bd.window)
                   for defs, n in task.cfg.stack.segments)
-    n_local = L - n_flash
+    n_mla = sum(n * sum(1 for bd in defs if bd.kind == "mla")
+                for defs, n in task.cfg.stack.segments)
+    n_local = L - n_flash - n_mla
     n_leaves = len(tu.leaves(params))
     cfg = ServeConfig(prompt_len=spec["prompt"], total_len=spec["total"],
-                      rungs=(1, 2, 4), tiers=(0, 1), ladder="tpu",
+                      rungs=(1, 2, 4), tiers=tuple(tiers), ladder="tpu",
                       max_new_tokens=DENSE_TOKENS, schedule="fifo", seed=0,
                       mem_cap_bytes=DENSE_MEM_CAP_GB * 1e9)
     prompts = np.random.default_rng(12).integers(
@@ -5309,9 +5401,10 @@ def dense_serve(arch: str, spec: dict, params, device="cuda") -> dict:
             sess.step()
         for p in prompts[4:]:
             sess.submit({"tokens": p})
-        while sess.engine.runs["decode"] - warm_runs["decode"] < 8:
-            sess.step()
-        sess.set_tier(0)
+        if len(cfg.tiers) > 1:
+            while sess.engine.runs["decode"] - warm_runs["decode"] < 8:
+                sess.step()
+            sess.set_tier(0)
         stats = sess.run()
         torch.cuda.synchronize()
         serve_s = time.perf_counter() - t2
@@ -5333,9 +5426,12 @@ def dense_serve(arch: str, spec: dict, params, device="cuda") -> dict:
     check(launches["flash_decode"] == n_flash * runs["decode"],
           f"{arch}: flash_decode {n_flash} a decode step: {launches} vs "
           f"{runs}")
-    check(launches["qdq_cast"] == launches["qdq_cast_two_pass"] == n_leaves,
-          f"{arch}: a two-pass qdq_cast a leaf: {launches}")
-    check(any(t == 0 for _, t in stats["tier_history"]), f"{arch}: tier 0")
+    n_cast = n_leaves if 0 in cfg.tiers else 0
+    check(launches["qdq_cast"] == launches["qdq_cast_two_pass"] == n_cast,
+          f"{arch}: {n_cast} two-pass qdq_casts, a leaf of a tier-0 set: "
+          f"{launches}")
+    check(any(t == 0 for _, t in stats["tier_history"]) == (0 in cfg.tiers),
+          f"{arch}: tier 0 served where it is warmed")
     check(max(r for _, r in stats["rung_history"]) == 4,
           f"{arch}: rung reached 4")
     tokens = stats["decoded_tokens"]
@@ -5343,8 +5439,9 @@ def dense_serve(arch: str, spec: dict, params, device="cuda") -> dict:
     lat = {f"{r}/{t}": round(float(np.median(sess.lat.samples(r, t))) * 1e3,
                              3)
            for r in cfg.rungs for t in cfg.tiers if sess.lat.samples(r, t)}
-    log(f"{arch} serving: {L} layers ({n_flash} on flash_decode, {n_local} "
-        f"local on the plain decode attention), {DENSE_REQUESTS} requests x "
+    log(f"{arch} serving, tiers {cfg.tiers}: {L} layers ({n_flash} on "
+        f"flash_decode, {n_local} local on the plain decode attention, "
+        f"{n_mla} MLA absorbed), {DENSE_REQUESTS} requests x "
         f"{DENSE_TOKENS} tokens, prompt {cfg.prompt_len}, cache "
         f"{cfg.total_len}: session {t1 - t0:.2f} s, warm {t2 - t1:.2f} s, "
         f"serving {serve_s:.3f} s, {tokens / serve_s:.1f} tok/s, TTFT p50 "
@@ -5373,7 +5470,7 @@ def dense_serve(arch: str, spec: dict, params, device="cuda") -> dict:
     del sess
     return {"launches": launches, "runs": runs, "n_local": n_local,
             "decode_busy_ms": prof["busy_ms"], "tok_s": tokens / serve_s,
-            "peak": peak}
+            "peak": peak, "session_s": t1 - t0}
 
 
 def dense_against_cpu(arch: str, spec: dict, cut, steps: int = 4,
@@ -5427,10 +5524,11 @@ def dense_against_cpu(arch: str, spec: dict, cut, steps: int = 4,
 
 def dense_phase(card: str, dev, bw, f32_ops, tc_ops) -> dict:
     """Phase 12: for each dense GQA architecture, its kernels against their
-    plain versions at its shapes, training at full width and depth
-    through the launcher, the card-vs-CPU check at the cut depth on the
-    trained weights, then serving the trained weights at full width and
-    depth (between the two, three more steps timed and one profiled).
+    plain versions at its shapes, training at full width (at the depth
+    ``_dense_depth`` gives) through the launcher, the card-vs-CPU check at
+    the cut depth on the trained weights, then serving the trained weights
+    at full width and that depth (between the two, three more steps timed
+    and one profiled).
     -> {arch: {"rows": {kernel: result}, "launches": {kernel: launches on
     the model's main paths}}}."""
     from repro_torch import tree as tu
@@ -5444,16 +5542,18 @@ def dense_phase(card: str, dev, bw, f32_ops, tc_ops) -> dict:
     for arch, spec in DENSE.items():
         t_model = time.perf_counter()
         cfg = get_model_config(arch)
+        run_cfg = _dense_depth(cfg, arch)
         log(f"{arch}: kernels at its shapes ({card})")
         rows = _dense_attention(cfg, spec, dev, bw, tc_ops)
         rows["flash_decode"] = _dense_decode(cfg, spec, dev, bw, tc_ops)
-        task = LMTask(cfg, device="cpu")
+        task = LMTask(run_cfg, device="cpu")
         like, _ = task.init(torch.Generator(), device="meta")
         rows.update(_dense_fused(slab_view(like, task.grouping(like)), dev,
                                  bw, f32_ops, arch))
         gc.collect()
         torch.cuda.empty_cache()
-        tr, tl, init_s, train_s = dense_train(arch, spec)
+        with _registry_config(arch, run_cfg):
+            tr, tl, init_s, train_s = dense_train(arch, spec)
         step_ms = []
         for _ in range(3):              # unprofiled steps at the top rung
             torch.cuda.synchronize()
@@ -5473,7 +5573,8 @@ def dense_phase(card: str, dev, bw, f32_ops, tc_ops) -> dict:
         cut = tu.tree_map(lambda x: x.to(torch.bfloat16).cpu(),
                           _dense_cut_params(params, n_cut))
         rows["qdq_cast"] = _dense_qdq(params, dev, bw, f32_ops)
-        sv = dense_serve(arch, spec, params)
+        with _registry_config(arch, run_cfg):
+            sv = dense_serve(arch, spec, params)
         del params
         gc.collect()
         torch.cuda.empty_cache()
@@ -5501,6 +5602,325 @@ def dense_phase(card: str, dev, bw, f32_ops, tc_ops) -> dict:
     return out
 
 
+# ------------------------------ phase 13: MLA and MoE (deepseek-v2-lite) ---
+MOE_ARCH = "deepseek-v2-lite-16b"
+#: the training sequence, the serving prompt and cache, the card-vs-CPU
+#: prompt
+MOE = dict(seq=1024, prompt=1024, total=2048, cpu_prompt=1024)
+#: training depth: the dense layer 0 and this many MoE layers, the most
+#: whose peak at rung 2 fits the card (7: 64.5 GB; 8 ran out of memory in
+#: its third step on an H100 80GB HBM3; PERF.md section 4)
+MOE_TRAIN_MOE_LAYERS = 7
+#: card vs CPU: a prompt, then teacher-forced decode steps, at layers 0
+#: (dense FFN) and 1 (MoE); logits within this share of their largest
+#: magnitude, as phases 4 and 12
+MOE_CPU_STEPS, MOE_CPU_TOL = 4, 0.04
+#: the kernels' launches phase 13 reports (flash_decode has none: MLA
+#: decodes in the absorbed form)
+MOE_ROWS = ("flash_attention", "flash_attention_bwd_delta",
+            "flash_attention_bwd_dq", "flash_attention_bwd_dkv",
+            "fused_stats", "fused_apply", "qdq_cast")
+
+
+def _moe_cut(cfg, moe_layers: int):
+    """``cfg`` with its MoE segment cut to ``moe_layers`` layers (the dense
+    layer 0 kept): the launcher has no depth flag, so the depth is cut in
+    the config, as ``_dense_cut`` does."""
+    (dense, n0), (moe, _) = cfg.stack.segments
+    return dataclasses.replace(cfg, stack=dataclasses.replace(
+        cfg.stack, segments=((dense, n0), (moe, moe_layers))))
+
+
+def _moe_qdq(x_host, dev, bw, ops_rate) -> dict:
+    """The two-pass tier-0 cast (tpu ladder, f32 in, bf16 out) of one
+    stacked expert leaf of the serving set, (26, 64, 2048, 1408): 4.8 G
+    elements, past 2^32, bitwise against the plain version, which runs
+    layer by layer under the leaf's one absmax (whole, its f32 temporaries
+    would not fit the card beside the leaf), and a repeat bitwise (both
+    compared layer by layer); timed beside the plain version and the byte
+    bound."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import qdq_cast as qc
+    bf = torch.bfloat16
+    x = x_host.to(dev)
+    n = x.numel()
+    got = ops.qdq_cast(x, 0, "tpu", out_dtype=bf)
+    amax = torch.stack([t.abs().amax() for t in x]).amax()
+
+    def plain(out=None):
+        for i, t in enumerate(x):
+            r = qc.qdq_cast_ref(t, 0, "tpu", amax, out_dtype=bf)
+            if out is not None:
+                out.append(same(got[i], r))
+    agree = []
+    plain(agree)
+    what = (f"qdq_cast two-pass on a {tuple(x.shape)} expert leaf ({n} "
+            f"elements, {n * 4} bytes f32)")
+    check(got.dtype == bf and n > 2 ** 32 and all(agree), what)
+    again = ops.qdq_cast(x, 0, "tpu", out_dtype=bf)
+    check(all(same(a, b) for a, b in zip(got, again)),
+          f"{what}: bitwise repeat")
+    del again
+    ms = time_ms(lambda: ops.qdq_cast(x, 0, "tpu", out_dtype=bf), iters=3,
+                 reps=3)
+    plain_ms = time_ms(plain, iters=1, reps=2)
+    b_ms, by = bound(n * 6, n * 4, bw, ops_rate)
+    log(f"  {what}: bitwise; kernel {ms:.4f} ms, plain by layers "
+        f"{plain_ms:.4f}, bound {b_ms:.4f} ({by})")
+    return {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": by, "library_ms": None}
+
+
+def _moe_masters(cfg, seed: int = 0):
+    """The full model's f32 masters in host memory (62.8 GB: they cannot
+    sit on the card beside a bf16 serving set, and the card machine's host
+    refuses to pin that much), drawn layer by layer by the port's
+    initializers on the card's seeded generator and copied straight into
+    place -> (params, seconds)."""
+    from repro_torch import tree as tu
+    from repro_torch.models.lm import lm_init
+    from repro_torch.nn import blocks
+    from repro_torch.nn.layers import embedding_init
+    t0 = time.perf_counter()
+    host = tu.tree_map(lambda x: torch.empty(x.shape, dtype=x.dtype),
+                       lm_init(None, cfg, device="meta"))
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def put(dst, src):
+        for d, x in zip(tu.leaves(dst), tu.leaves(src)):
+            d.copy_(x)
+    put(host["embed"], embedding_init(gen, cfg.vocab_size, cfg.d_model,
+                                      device="cuda"))
+    for si, (defs, n) in enumerate(cfg.stack.segments):
+        seg = host["stack"][f"seg{si}"]
+        for r in range(n):
+            put(tu.tree_map(lambda x: x[r], seg),
+                {f"b{i}": blocks.block_init(gen, bd, cfg.stack, "cuda")
+                 for i, bd in enumerate(defs)})
+    host["final_norm"]["scale"].zero_()
+    put(host["unembed"], embedding_init(gen, cfg.vocab_size, cfg.d_model,
+                                        device="cuda"))
+    torch.cuda.synchronize()
+    return host, time.perf_counter() - t0
+
+
+def _moe_split(cfg, busy_ms: float, dev) -> dict:
+    """One MoE layer at the serving decode's shape (4 rows, C 1), device
+    time by the profiler: the whole ``moe_apply`` and its dispatch (rank,
+    drop, scatter-add), each times the model's MoE layers against a decode
+    step's busy time."""
+    from repro_torch import tree as tu
+    from repro_torch.nn import moe
+    m = cfg.stack.moe
+    n_moe = cfg.stack.segments[1][1]
+    gen = torch.Generator(device=dev).manual_seed(21)
+    p = tu.tree_map(lambda w: w.to(torch.bfloat16),
+                    moe.moe_init(gen, m, device=dev))
+    x = torch.randn((4, 1, m.d_model), device=dev).to(torch.bfloat16)
+    C = max(1, math.ceil(4 * m.top_k / m.num_experts * m.capacity_factor))
+    with torch.no_grad():
+        probs = torch.softmax(x.reshape(4, -1).float() @ p["router"].float(),
+                              dim=-1)
+        flat_e = moe.top_k(probs, m.top_k)[1].reshape(-1)
+        whole = device_ms(lambda: moe.moe_apply(p, x, m), iters=20)
+        disp = device_ms(lambda: moe.dispatch(x.reshape(4, -1), flat_e,
+                                              m.top_k, m.num_experts, C),
+                         iters=20)
+    out = {"moe_layer_ms": whole, "dispatch_ms": disp,
+           "moe_share": n_moe * whole / busy_ms,
+           "dispatch_share": n_moe * disp / busy_ms}
+    log(f"  one MoE layer at decode (4 rows, C {C}): device {whole:.5f} ms, "
+        f"its dispatch {disp:.5f} ms; x {n_moe} layers: "
+        f"{out['moe_share']:.3f} / {out['dispatch_share']:.3f} of a decode "
+        f"step's device time ({busy_ms:.3f} ms busy)")
+    return out
+
+
+def _routes(calls) -> list:
+    """Recorded ``moe.top_k`` calls -> [(probs, chosen experts as sorted
+    rows)] on the host."""
+    return [(p.float().cpu(), torch.sort(i, dim=-1).values.cpu())
+            for p, i in calls]
+
+
+def moe_against_cpu(params, spec: dict, card="cuda") -> dict:
+    """A prefill of ``cpu_prompt`` tokens and ``MOE_CPU_STEPS`` teacher-
+    forced decode steps at full width through layers 0 (MLA + dense FFN)
+    and 1 (MLA + MoE), bf16 weights from ``params``, at one batch
+    composition (one row) on the card (kernels) and the CPU (plain
+    versions). The MoE layer's choice of experts is compared first: a
+    token may route differently only where its k-th and (k+1)-th router
+    probabilities lie within twice the largest card-vs-CPU gap of that
+    call's probabilities (a near-tie); such flips are counted. Then the
+    logits within ``MOE_CPU_TOL`` of their largest magnitude."""
+    from repro_torch import tree as tu
+    from repro_torch.models import lm
+    from repro_torch.models.registry import get_model_config
+    from repro_torch.nn import moe
+    from repro_torch.serve.engine import scatter_prefill
+    cfg = _moe_cut(get_model_config(MOE_ARCH), 1)
+    cut = {k: v for k, v in params.items() if k != "stack"}
+    cut["stack"] = {"seg0": params["stack"]["seg0"],
+                    "seg1": tu.tree_map(lambda x: x[:1],
+                                        params["stack"]["seg1"])}
+    cut = tu.tree_map(lambda x: x.to(torch.bfloat16), cut)
+    prompt, steps = spec["cpu_prompt"], MOE_CPU_STEPS
+    g = torch.Generator().manual_seed(4)
+    toks = torch.randint(0, cfg.vocab_size, (1, prompt), generator=g,
+                         dtype=torch.int32)
+    feed = torch.randint(0, cfg.vocab_size, (steps, 1), generator=g,
+                         dtype=torch.int32)
+    out, routes, secs = {}, {}, {}
+    orig = moe.top_k
+    for dev in ("cpu", card):
+        calls = []
+
+        def top_k(probs, k):
+            vals, idx = orig(probs, k)
+            calls.append((probs, idx))
+            return vals, idx
+        moe.top_k = top_k
+        t0 = time.perf_counter()
+        try:
+            p = tu.tree_map(lambda x: x.to(dev), cut)
+            logits = []
+            with torch.no_grad():
+                lg, pre = lm.lm_prefill(p, {"tokens": toks.to(dev)}, cfg)
+                logits.append(lg.float().cpu())
+                caches = scatter_prefill(
+                    lm.lm_init_cache(cfg, 1, spec["total"], device=dev), pre,
+                    0)
+                for i in range(steps):
+                    lg, caches = lm.lm_decode_step(
+                        p, feed[i].to(dev), caches,
+                        torch.tensor([prompt + i], device=dev), cfg)
+                    logits.append(lg.float().cpu())
+        finally:
+            moe.top_k = orig
+        out[dev] = torch.stack(logits)
+        routes[dev] = _routes(calls)
+        secs[dev] = time.perf_counter() - t0
+        del p, caches, pre, calls
+    k = cfg.stack.moe.top_k
+    check(len(routes["cpu"]) == len(routes[card]) == 1 + steps,
+          f"{MOE_ARCH}: one router call a forward")
+    flips, worst_gap = 0, 0.0
+    for (pc, ec), (pg, eg) in zip(routes["cpu"], routes[card]):
+        diff = (ec != eg).any(dim=-1)
+        near = 2.0 * float((pc - pg).abs().max())
+        top2 = torch.sort(pc, dim=-1, descending=True).values
+        gap = top2[:, k - 1] - top2[:, k]
+        if bool(diff.any()):
+            worst_gap = max(worst_gap, float(gap[diff].max()))
+            check(bool((gap[diff] <= near).all()),
+                  f"{MOE_ARCH}: routing differs card vs CPU away from a "
+                  f"near-tie: gaps {gap[diff].tolist()} > {near}")
+        flips += int(diff.sum())
+    ref, got = out["cpu"], out[card]
+    gap = float((got - ref).abs().max())
+    lim = MOE_CPU_TOL * float(ref.abs().max())
+    same_top = (got.argmax(-1) == ref.argmax(-1)).float().mean()
+    log(f"{MOE_ARCH} x2 layers (dense, MoE), prefill {prompt} + {steps} "
+        f"decode steps, card vs CPU: routing flips {flips} of "
+        f"{prompt + steps} tokens (all at near-ties; widest gap "
+        f"{worst_gap:.3g}), max|dlogit| {gap:.4g} (limit {lim:.4g}), same "
+        f"argmax {float(same_top):.2f}; CPU {secs['cpu']:.1f} s, card "
+        f"{secs[card]:.1f} s")
+    check(bool(torch.isfinite(got).all()), f"{MOE_ARCH}: finite card logits")
+    check(gap <= lim, f"{MOE_ARCH}: card vs CPU logits {gap} > {lim}")
+    return {"flips": flips, "gap": gap}
+
+
+def moe_phase(card: str, dev, bw, f32_ops, tc_ops) -> dict:
+    """Phase 13: deepseek-v2-lite-16b, MLA and MoE. Its kernels against
+    their plain versions at its shapes (the tensor-core forward and the
+    backward at D 192 / Dv 128, the fused update on the cut model's slab);
+    training at full width, the depth cut to the dense layer and
+    ``MOE_TRAIN_MOE_LAYERS`` MoE layers, through the launcher; the full
+    model's f32 masters drawn on the card's generator into host memory;
+    the two-pass cast of one 4.8 G-element expert leaf; serving at full
+    width and depth (27 layers), one session a tier (tier 1, then tier 0:
+    two bf16 sets and a cast's f32 leaf do not fit the card together),
+    each set built leaf by leaf from the host masters; the dispatch's
+    share of a decode step; card vs CPU at layers 0-1.
+    -> {"rows": {kernel: result}, "launches": {kernel: launches}}."""
+    from repro_torch import tree as tu
+    from repro_torch.kernels.layout import slab_view
+    from repro_torch.models.registry import get_model_config
+    from repro_torch.train.task import LMTask
+    t_phase = time.perf_counter()
+    log(f"phase 13 starts with {torch.cuda.memory_allocated() / 1e9:.3f} GB "
+        "allocated on the card")
+    full = get_model_config(MOE_ARCH)
+    cut = _moe_cut(full, MOE_TRAIN_MOE_LAYERS)
+    log(f"{MOE_ARCH}: kernels at its shapes ({card})")
+    rows = _dense_attention(full, MOE, dev, bw, tc_ops)
+    task = LMTask(cut, device="cpu")
+    like, _ = task.init(torch.Generator(), device="meta")
+    rows.update(_dense_fused(slab_view(like, task.grouping(like)), dev, bw,
+                             f32_ops, f"{MOE_ARCH} x{cut.num_layers}"))
+    del like
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    with _registry_config(MOE_ARCH, cut):
+        tr, tl, init_s, train_s = dense_train(MOE_ARCH, MOE)
+    aux = {k: tr.metrics_log[0][k] for k in ("moe_load_balance",
+                                              "moe_z_loss")}
+    check(all(math.isfinite(v) and v != 0.0 for v in aux.values()),
+          f"{MOE_ARCH}: MoE aux terms finite and non-zero: {aux}")
+    step_ms = []
+    for _ in range(3):              # unprofiled steps at the top rung
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        tr.run(1)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t1) * 1e3)
+    log(f"{MOE_ARCH} training at {cut.num_layers} layers (1 dense + "
+        f"{MOE_TRAIN_MOE_LAYERS} MoE): step 0's aux terms {aux}; a train "
+        f"step at rung {tr.scaler.microbatch}, S {MOE['seq']}: "
+        f"{statistics.median(step_ms):.1f} ms (median of 3: "
+        f"{[round(x, 1) for x in step_ms]}); training part "
+        f"{time.perf_counter() - t0:.1f} s")
+    profile_lm_step(tr)
+    del tr
+    gc.collect()
+    torch.cuda.empty_cache()
+    masters, draw_s = _moe_masters(full)
+    n = sum(int(x.numel()) for x in tu.leaves(masters))
+    log(f"{MOE_ARCH}: {n} parameters drawn on the card's generator into "
+        f"host memory in {draw_s:.1f} s")
+    rows["qdq_cast"] = _moe_qdq(masters["stack"]["seg1"]["b0"]["ffn"]["w_up"],
+                                dev, bw, f32_ops)
+    gc.collect()
+    torch.cuda.empty_cache()
+    serve = {}
+    for t in (1, 0):
+        serve[t] = dense_serve(MOE_ARCH, MOE, masters, tiers=(t,))
+        gc.collect()
+        torch.cuda.empty_cache()
+    _moe_split(full, serve[0]["decode_busy_ms"], dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    vs_cpu = moe_against_cpu(masters, MOE)
+    del masters
+    gc.collect()
+    launches = {k: tl.get(k, 0) for k in MOE_ROWS}
+    launches["flash_attention"] += sum(sv["launches"]["flash_attention"]
+                                       for sv in serve.values())
+    launches["qdq_cast"] = serve[0]["launches"]["qdq_cast"]
+    check(all(sv["launches"]["flash_decode"] == 0 for sv in serve.values()),
+          f"{MOE_ARCH}: flash_decode 0 launches (MLA decodes absorbed)")
+    log(f"phase 13 in {time.perf_counter() - t_phase:.1f} s: task.init "
+        f"{init_s:.1f} s, training {train_s:.1f} s, masters {draw_s:.1f} s, "
+        f"serving sessions {serve[1]['session_s']:.1f} / "
+        f"{serve[0]['session_s']:.1f} s (tier 1 / 0), tok/s "
+        f"{serve[1]['tok_s']:.1f} / {serve[0]['tok_s']:.1f}, peaks "
+        f"{serve[1]['peak'] / 1e9:.3f} / {serve[0]['peak'] / 1e9:.3f} GB, "
+        f"routing flips card vs CPU {vs_cpu['flips']} ({card})")
+    return {"rows": rows, "launches": launches}
+
+
 CHILDREN = {"train-real-oom": real_oom, "serve-real-oom": serve_real_oom}
 
 
@@ -5516,6 +5936,9 @@ def main() -> int:
     ap.add_argument("--dense-only", action="store_true",
                     help="build, then run phase 12 (the dense GQA "
                          "architectures) alone; prints no result line")
+    ap.add_argument("--moe-only", action="store_true",
+                    help="build, then run phase 13 (deepseek-v2-lite-16b, "
+                         "MLA and MoE) alone; prints no result line")
     ap.add_argument("--child", choices=sorted(CHILDREN),
                     help=argparse.SUPPRESS)   # a check's own process
     args = ap.parse_args()
@@ -5565,6 +5988,9 @@ def main() -> int:
     dev = torch.device("cuda")
     if args.dense_only:
         dense_phase(card, dev, bw, f32_ops, tc_ops)
+        return 0
+    if args.moe_only:
+        moe_phase(card, dev, bw, f32_ops, tc_ops)
         return 0
     t_phase = time.perf_counter()
     view = vision_view()
@@ -5736,6 +6162,15 @@ def main() -> int:
         for k, r in d["rows"].items():
             res[f"{k}@{arch}"] = r
             launches[f"{k}@{arch}"] = d["launches"][k]
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # MLA and MoE: deepseek-v2-lite-16b's kernels at its shapes, then its
+    # training and serving main paths with their counts read around them
+    d = moe_phase(card, dev, bw, f32_ops, tc_ops)
+    for k, r in d["rows"].items():
+        res[f"{k}@{MOE_ARCH}"] = r
+        launches[f"{k}@{MOE_ARCH}"] = d["launches"][k]
 
     rows = [{"name": rname, "route": "cuda", "source": src,
              "replaces": replaces, "launches": launches[rname],

@@ -16,7 +16,11 @@ decode kernel (``kernels.ops.flash_decode``): row b reads its live
 place (the reference's are donated): ``gqa_decode`` writes the new K/V row
 into the cache tensors it is given and returns the same dict.
 
-MLA and cross-attention wait for the architectures that use them.
+Multi-head latent attention (MLA, DeepSeek-V2) trains and prefills through
+``attention`` at its split head dims (q and k nope + rope, v its own) and
+decodes in the reference's absorbed form against its compressed cache
+(``ckv``, ``kr``), updated in place as GQA's. Cross-attention waits for
+the encoder-decoder slice.
 """
 from __future__ import annotations
 
@@ -28,7 +32,8 @@ from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.nn.layers import apply_rope, rmsnorm, rmsnorm_init
+from repro_torch.nn.layers import (apply_rope, dense, dense_init, rmsnorm,
+                                   rmsnorm_init)
 from repro_torch.nn.module import param
 
 NEG_INF = -2.0e38
@@ -127,6 +132,28 @@ class AttnConfig:
     def scale(self) -> float:
         return (self.softmax_scale if self.softmax_scale is not None
                 else self.head_dim ** -0.5)
+
+
+@dataclasses.dataclass(frozen=True)
+class MLAConfig:
+    """Multi-head latent attention (DeepSeek-V2): q directly or through a
+    low-rank ``q_lora_rank`` bottleneck, k/v from a ``kv_lora_rank``
+    compressed row plus a shared rotary key part."""
+    d_model: int
+    num_heads: int
+    q_lora_rank: Optional[int]     # None -> direct q projection (v2-lite)
+    kv_lora_rank: int
+    qk_nope_dim: int = 128
+    qk_rope_dim: int = 64
+    v_head_dim: int = 128
+    rope_theta: float = 10000.0
+    impl: str = "chunked"
+    q_chunk: int = 512
+    k_chunk: int = 512
+
+    @property
+    def scale(self) -> float:
+        return (self.qk_nope_dim + self.qk_rope_dim) ** -0.5
 
 
 # =========================================================== mask helpers ==
@@ -358,6 +385,113 @@ def gqa_decode(p, x, cache, index, cfg: AttnConfig, window=None,
     return y, cache
 
 
+# ================================================================= MLA ======
+def mla_init(gen, cfg: MLAConfig, device="cpu"):
+    dm, H = cfg.d_model, cfg.num_heads
+    qk_dim = cfg.qk_nope_dim + cfg.qk_rope_dim
+    p = {}
+    if cfg.q_lora_rank:
+        p["wdq"] = dense_init(gen, dm, cfg.q_lora_rank, device=device)
+        p["qnorm"] = rmsnorm_init(gen, cfg.q_lora_rank, device)
+        p["wuq"] = _proj_init(gen, cfg.q_lora_rank, H, qk_dim, device)
+    else:
+        p["wq"] = _proj_init(gen, dm, H, qk_dim, device)
+    p["wdkv"] = dense_init(gen, dm, cfg.kv_lora_rank, device=device)
+    p["kvnorm"] = rmsnorm_init(gen, cfg.kv_lora_rank, device)
+    p["wkr"] = dense_init(gen, dm, cfg.qk_rope_dim, device=device)
+    p["wuk"] = _proj_init(gen, cfg.kv_lora_rank, H, cfg.qk_nope_dim, device)
+    p["wuv"] = _proj_init(gen, cfg.kv_lora_rank, H, cfg.v_head_dim, device)
+    p["wo"] = _out_init(gen, H, cfg.v_head_dim, dm, device)
+    return p
+
+
+def _mla_q(p, x, q_pos, cfg: MLAConfig):
+    """-> (q_nope, q_rope), (B, S, H, nope) and (B, S, H, rope); the q-lora
+    form (``wdq`` -> ``qnorm`` -> ``wuq``) where the config has a rank."""
+    if cfg.q_lora_rank:
+        q = proj(p["wuq"], rmsnorm(p["qnorm"], dense(p["wdq"], x)))
+    else:
+        q = proj(p["wq"], x)
+    q_nope, q_rope = q.split([cfg.qk_nope_dim, cfg.qk_rope_dim], dim=-1)
+    return q_nope, apply_rope(q_rope, q_pos, cfg.rope_theta)
+
+
+def _mla_ckv(p, x, pos, cfg: MLAConfig):
+    """-> (ckv (B, S, rank), kr (B, S, rope)): the compressed cache rows."""
+    ckv = rmsnorm(p["kvnorm"], dense(p["wdkv"], x))
+    kr = apply_rope(dense(p["wkr"], x)[:, :, None, :], pos,
+                    cfg.rope_theta)[:, :, 0, :]
+    return ckv, kr
+
+
+def mla_fwd(p, x, q_pos, cfg: MLAConfig, window=None, return_cache=False,
+            segments=None):
+    """Training / prefill MLA: the compressed kv expanded into per-head k
+    (nope, then the shared rope part broadcast over the heads) and v, then
+    ``attention`` at the split head dims (q and k nope + rope, v
+    ``v_head_dim``). ``torch.cat`` writes k whole, so the kernels get
+    contiguous operands. With ``return_cache`` also the compressed cache:
+    ``ckv``, ``kr`` and the positions."""
+    B, S, _ = x.shape
+    H = cfg.num_heads
+    q_nope, q_rope = _mla_q(p, x, q_pos, cfg)
+    ckv, kr = _mla_ckv(p, x, q_pos, cfg)
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    k = torch.cat([proj(p["wuk"], ckv),
+                   kr[:, :, None, :].expand(B, S, H, cfg.qk_rope_dim)],
+                  dim=-1)
+    v = proj(p["wuv"], ckv)
+    out = attention(q, k, v, q_pos, q_pos, causal=True, window=window,
+                    scale=cfg.scale, impl=cfg.impl, q_chunk=cfg.q_chunk,
+                    k_chunk=cfg.k_chunk, segments=segments)
+    y = out_proj(p["wo"], out)
+    if return_cache:
+        return y, {"ckv": ckv, "kr": kr, "pos": q_pos}
+    return y
+
+
+def mla_init_cache(cfg: MLAConfig, batch: int, length: int,
+                   dtype=torch.bfloat16, device="cpu"):
+    return {"ckv": torch.zeros((batch, length, cfg.kv_lora_rank),
+                               dtype=dtype, device=device),
+            "kr": torch.zeros((batch, length, cfg.qk_rope_dim), dtype=dtype,
+                              device=device),
+            "pos": torch.full((batch, length), -1, dtype=torch.int32,
+                              device=device)}
+
+
+def mla_decode(p, x, cache, index, cfg: MLAConfig):
+    """One absorbed-matmul MLA decode step against the compressed cache,
+    in f32 as the reference: ``W_uk`` folds into the query (q_abs = q_nope
+    W_uk per head), the scores are taken against ``ckv`` plus q_rope
+    against ``kr``, and ``W_uv`` applies after the weighted sum, so no
+    per-head K or V is made. Writes the new row at slot index % L of each
+    row of ``cache`` IN PLACE and returns (y, cache)."""
+    B = x.shape[0]
+    L = cache["ckv"].shape[1]
+    idx = decode_index(index, B, x.device)
+    pos = idx[:, None]
+    q_nope, q_rope = _mla_q(p, x, pos, cfg)               # (B, 1, H, .)
+    ckv_new, kr_new = _mla_ckv(p, x, pos, cfg)
+    slot = (idx % L).long()
+    rows = torch.arange(B, device=x.device)
+    ckv, kr, cpos = cache["ckv"], cache["kr"], cache["pos"]
+    ckv[rows, slot] = ckv_new[:, 0].to(ckv.dtype)
+    kr[rows, slot] = kr_new[:, 0].to(kr.dtype)
+    cpos[rows, slot] = pos[:, 0]
+    ckv_f = ckv.float()
+    q_abs = torch.einsum("bqhn,rhn->bqhr", q_nope.float(),
+                         p["wuk"]["kernel"].float())      # (B, 1, H, R)
+    s = (torch.einsum("bqhr,bsr->bhqs", q_abs, ckv_f)
+         + torch.einsum("bqhe,bse->bhqs", q_rope.float(), kr.float())
+         ) * cfg.scale                                    # (B, H, 1, L)
+    s = s + _mask_bias(pos, cpos, True, None)[:, None, :, :]
+    w = torch.softmax(s, dim=-1)
+    ctx = torch.einsum("bhqs,bsr->bqhr", w, ckv_f)
+    out = torch.einsum("bqhr,rhv->bqhv", ctx, p["wuv"]["kernel"].float())
+    return out_proj(p["wo"], out.to(x.dtype)), cache
+
+
 # ======================================================= not ported yet =====
 def _not_ported(name: str, slice_: str):
     def fn(*args, **kwargs):
@@ -366,10 +500,6 @@ def _not_ported(name: str, slice_: str):
     return fn
 
 
-mla_init = _not_ported("mla_init", "the MLA/MoE slice")
-mla_fwd = _not_ported("mla_fwd", "the MLA/MoE slice")
-mla_init_cache = _not_ported("mla_init_cache", "the MLA/MoE slice")
-mla_decode = _not_ported("mla_decode", "the MLA/MoE slice")
 cross_init = _not_ported("cross_init", "the encoder-decoder slice")
 cross_make_cache = _not_ported("cross_make_cache",
                                "the encoder-decoder slice")

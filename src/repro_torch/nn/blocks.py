@@ -6,12 +6,13 @@ reference's ``lax.scan`` layout, so weights cross unchanged); the port
 walks that axis with a Python loop. Caches are stacked the same way,
 (layers, B, ...), and updated in place by decode.
 
-Ported so far: ``gqa`` mixing with the dense gated FFN, in the ``train``,
-``prefill`` and ``decode`` modes. In train mode each layer runs under
-``torch.utils.checkpoint`` when ``remat`` (the reference's
-``jax.checkpoint``), so backward recomputes it; the in-loss precision
-emulation (``codes``/``qdq_fn`` of ``reference_step``) rounds each layer's
-weights inside that checkpoint. MLA, SSM, RG-LRU, MoE and
+Ported so far: ``gqa`` and ``mla`` mixing with the dense FFN or the MoE
+FFN, in the ``train``, ``prefill`` and ``decode`` modes. In train mode each
+layer runs under ``torch.utils.checkpoint`` when ``remat`` (the
+reference's ``jax.checkpoint``), so backward recomputes it; the in-loss
+precision emulation (``codes``/``qdq_fn`` of ``reference_step``) rounds
+each layer's weights inside that checkpoint. The MoE aux terms are summed
+over the layers in train mode, through the checkpoints. SSM, RG-LRU and
 cross-attention blocks wait for their slices.
 """
 from __future__ import annotations
@@ -25,15 +26,17 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch import tree as tu
 from repro_torch.nn import attention as attn_lib
-from repro_torch.nn.attention import AttnConfig
+from repro_torch.nn import moe as moe_lib
+from repro_torch.nn.attention import AttnConfig, MLAConfig
 from repro_torch.nn.layers import (activation, dense, dense_init, rmsnorm,
                                    rmsnorm_init)
 from repro_torch.nn.module import stack_init as _stacked
+from repro_torch.nn.moe import MoEConfig
 
 
 @dataclasses.dataclass(frozen=True)
 class BlockDef:
-    kind: str                 # "gqa" (others wait for their slices)
+    kind: str                 # "gqa" | "mla" (others wait for their slices)
     ffn: str = "dense"        # "dense" | "moe" | "none"
     window: int = 0           # 0 = global attention; > 0 = sliding window
     cross: bool = False       # decoder block with cross-attention
@@ -45,6 +48,8 @@ class StackConfig:
     d_model: int
     d_ff: int
     attn: Optional[AttnConfig] = None
+    mla: Optional[MLAConfig] = None
+    moe: Optional[MoEConfig] = None
     act: str = "silu"
     gated: bool = True        # SwiGLU-style gated FFN vs plain 2-matrix MLP
     norm_eps: float = 1e-6
@@ -56,10 +61,12 @@ class StackConfig:
 
 
 def _check_block(bd: BlockDef) -> None:
-    if bd.kind != "gqa" or bd.ffn not in ("dense", "none") or bd.cross:
+    if bd.kind not in ("gqa", "mla") or bd.ffn not in ("dense", "moe",
+                                                        "none") or bd.cross:
         raise NotImplementedError(
-            f"block {bd} is not ported yet: the port runs gqa blocks with "
-            "dense FFNs (the other kinds come with their architectures)")
+            f"block {bd} is not ported yet: the port runs gqa and mla blocks "
+            "with dense or MoE FFNs (the other kinds come with their "
+            "architectures)")
 
 
 # ------------------------------------------------------------------ FFN ----
@@ -83,11 +90,14 @@ def ffn_apply(p, x, act_name):
 # ---------------------------------------------------------------- block ----
 def block_init(gen, bd: BlockDef, sc: StackConfig, device="cpu"):
     _check_block(bd)
-    p: Dict[str, Any] = {"norm1": rmsnorm_init(gen, sc.d_model, device),
-                         "mix": attn_lib.gqa_init(gen, sc.attn, device)}
+    p: Dict[str, Any] = {"norm1": rmsnorm_init(gen, sc.d_model, device)}
+    p["mix"] = (attn_lib.mla_init(gen, sc.mla, device) if bd.kind == "mla"
+                else attn_lib.gqa_init(gen, sc.attn, device))
     if bd.ffn != "none":
         p["norm2"] = rmsnorm_init(gen, sc.d_model, device)
-        p["ffn"] = ffn_init(gen, sc.d_model, sc.d_ff, sc.gated, device)
+        p["ffn"] = (moe_lib.moe_init(gen, sc.moe, device) if bd.ffn == "moe"
+                    else ffn_init(gen, sc.d_model, sc.d_ff, sc.gated,
+                                  device))
     return p
 
 
@@ -95,6 +105,9 @@ def block_init_cache(bd: BlockDef, sc: StackConfig, batch: int, length: int,
                      dtype=torch.bfloat16, device="cpu"):
     """Decode-time cache for one block."""
     _check_block(bd)
+    if bd.kind == "mla":
+        return {"mix": attn_lib.mla_init_cache(sc.mla, batch, length, dtype,
+                                               device)}
     L = min(length, bd.window) if bd.window > 0 else length
     return {"mix": attn_lib.gqa_init_cache(sc.attn, batch, L, dtype,
                                            device)}
@@ -102,28 +115,43 @@ def block_init_cache(bd: BlockDef, sc: StackConfig, batch: int, length: int,
 
 def _block_fwd(p, x, pos, bd: BlockDef, sc: StackConfig, mode: str,
                cache=None, index=None, segments=None):
-    """-> (x, new_cache) for one block in {train, prefill, decode}; the
-    cache is None in train mode."""
+    """-> (x, new_cache, aux) for one block in {train, prefill, decode};
+    the cache is None in train mode, ``aux`` the MoE block's aux terms
+    (None for a block without a MoE FFN, whose terms are zero)."""
     _check_block(bd)
     h = rmsnorm(p["norm1"], x, sc.norm_eps)
     window = bd.window or None
     c = None
-    if mode == "decode":
+    if mode not in ("train", "prefill", "decode"):
+        raise ValueError(f"unknown mode {mode!r}")
+    if bd.kind == "mla":
+        if mode == "decode":
+            y, c = attn_lib.mla_decode(p["mix"], h, cache["mix"], index,
+                                       sc.mla)
+        elif mode == "prefill":
+            y, c = attn_lib.mla_fwd(p["mix"], h, pos, sc.mla,
+                                    return_cache=True, segments=segments)
+        else:
+            y = attn_lib.mla_fwd(p["mix"], h, pos, sc.mla, segments=segments)
+    elif mode == "decode":
         y, c = attn_lib.gqa_decode(p["mix"], h, cache["mix"], index, sc.attn,
                                    window=window)
     elif mode == "prefill":
         y, c = attn_lib.gqa_fwd(p["mix"], h, pos, sc.attn, window=window,
                                 return_cache=True, segments=segments)
-    elif mode == "train":
+    else:
         y = attn_lib.gqa_fwd(p["mix"], h, pos, sc.attn, window=window,
                              segments=segments)
-    else:
-        raise ValueError(f"unknown mode {mode!r}")
     x = x + y
+    aux = None
     if bd.ffn != "none":
-        x = x + ffn_apply(p["ffn"], rmsnorm(p["norm2"], x, sc.norm_eps),
-                          sc.act)
-    return x, (None if c is None else {"mix": c})
+        h2 = rmsnorm(p["norm2"], x, sc.norm_eps)
+        if bd.ffn == "moe":
+            y2, aux = moe_lib.moe_apply(p["ffn"], h2, sc.moe)
+        else:
+            y2 = ffn_apply(p["ffn"], h2, sc.act)
+        x = x + y2
+    return x, (None if c is None else {"mix": c}), aux
 
 
 # ---------------------------------------------------------------- stack ----
@@ -169,17 +197,22 @@ def _apply_qdq(gp, codes, qdq_fn, defs):
             for i in range(len(defs))}
 
 
-def _train_layer(gpi, x, pos, defs, sc: StackConfig, segments, codes=None,
-                 qdq_fn=None):
+def _train_layer(gpi, x, lb, zl, pos, defs, sc: StackConfig, segments,
+                 codes=None, qdq_fn=None):
+    """One stacked layer in train mode -> (x, lb, zl): the running sums of
+    the MoE aux terms carried through it, as the reference's scan carry,
+    so they pass through the layer's checkpoint."""
     gpi = _apply_qdq(gpi, codes, qdq_fn, defs)
     for i, bd in enumerate(defs):
-        x, _ = _block_fwd(gpi[f"b{i}"], x, pos, bd, sc, "train",
-                          segments=segments)
-    return x
+        x, _, ai = _block_fwd(gpi[f"b{i}"], x, pos, bd, sc, "train",
+                              segments=segments)
+        if ai is not None:
+            lb = lb + ai["moe_load_balance"]
+            zl = zl + ai["moe_z_loss"]
+    return x, lb, zl
 
 
 def _aux_zeros(device):
-    """The MoE aux terms (no MoE block is ported: both are zero)."""
     z = torch.zeros((), dtype=torch.float32, device=device)
     return {"moe_load_balance": z, "moe_z_loss": z.clone()}
 
@@ -188,12 +221,16 @@ def stack_fwd(params, x, pos, sc: StackConfig, mode: str = "train",
               caches=None, index=None, codes=None, qdq_fn=None,
               segments=None):
     """Run the stack -> (x, caches, aux). Train mode returns no caches and
-    the zero MoE aux terms; prefill returns fresh stacked caches (layers,
-    B, S, ...); decode updates ``caches`` in place and returns them.
+    the MoE aux terms summed over the layers; prefill returns fresh stacked
+    caches (layers, B, S, ...); decode updates ``caches`` in place and
+    returns them. Prefill and decode return the aux terms of the
+    reference's loop (the initial zeros), unused there.
     ``codes`` ((num_layers,) int32, train mode only) are the layers'
     precision codes for ``qdq_fn``, the in-loss precision emulation;
     without ``codes`` every layer takes tier 1 (bf16)."""
+    aux = _aux_zeros(x.device)
     if mode == "train":
+        lb, zl = aux["moe_load_balance"], aux["moe_z_loss"]
         flags = attn_lib.dispatch_flags()
         ctx = lambda: (contextlib.nullcontext(),           # noqa: E731
                        attn_lib.dispatch_context(flags))
@@ -209,13 +246,14 @@ def stack_fwd(params, x, pos, sc: StackConfig, mode: str = "train",
             layer0 += n * k
             for gpi, ci in zip(_layers(params[f"seg{si}"], n), seg_codes):
                 if sc.remat:
-                    x = checkpoint(_train_layer, gpi, x, pos, defs, sc,
-                                   segments, ci, qdq_fn, use_reentrant=False,
-                                   context_fn=ctx, preserve_rng_state=False)
+                    x, lb, zl = checkpoint(
+                        _train_layer, gpi, x, lb, zl, pos, defs, sc,
+                        segments, ci, qdq_fn, use_reentrant=False,
+                        context_fn=ctx, preserve_rng_state=False)
                 else:
-                    x = _train_layer(gpi, x, pos, defs, sc, segments, ci,
-                                     qdq_fn)
-        return x, None, _aux_zeros(x.device)
+                    x, lb, zl = _train_layer(gpi, x, lb, zl, pos, defs, sc,
+                                             segments, ci, qdq_fn)
+        return x, None, {"moe_load_balance": lb, "moe_z_loss": zl}
     if mode not in ("prefill", "decode"):
         raise ValueError(f"unknown mode {mode!r}")
     new_caches = {}
@@ -227,7 +265,7 @@ def stack_fwd(params, x, pos, sc: StackConfig, mode: str = "train",
         for gpi, ci in zip(_layers(gp, n), layer_caches):
             cs = {}
             for i, bd in enumerate(defs):
-                x, cs[f"b{i}"] = _block_fwd(
+                x, cs[f"b{i}"], _ = _block_fwd(
                     gpi[f"b{i}"], x, pos, bd, sc, mode,
                     cache=ci[f"b{i}"] if ci is not None else None,
                     index=index, segments=segments)
@@ -237,4 +275,4 @@ def stack_fwd(params, x, pos, sc: StackConfig, mode: str = "train",
                 lambda *xs: torch.stack(xs), *per_layer)
         else:
             new_caches[f"seg{si}"] = caches[f"seg{si}"]
-    return x, new_caches, None
+    return x, new_caches, aux

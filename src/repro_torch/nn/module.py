@@ -1,8 +1,10 @@
 """Parameter initializers. Params are plain tensors in nested dicts (no
 wrapper, no logical-axis metadata: the port runs on one device). Random
-draws come from an explicit CPU ``torch.Generator`` and move to ``device``
-afterwards, so a seed gives the same weights on every device; on the
-``meta`` device only shapes are made. The reference's ``split_params``
+draws come from an explicit ``torch.Generator`` on that generator's own
+device (the CPU's, or the card's for a model too large to draw on one
+host thread) and move to ``device`` afterwards, so a seed and a generator
+device give the same weights on every device; on the ``meta`` device only
+shapes are made. The reference's ``split_params``
 (values apart from logical sharding axes) has nothing to split here: a
 port tree is already the reference's split values tree."""
 from __future__ import annotations
@@ -32,12 +34,13 @@ def param(gen: torch.Generator, shape: Sequence[int], init: str = "normal",
     elif init == "normal":
         if scale is None:
             scale = 1.0 / math.sqrt(max(1, shape[0] if shape else 1))
-        value = torch.empty(shape, dtype=dtype)
+        value = torch.empty(shape, dtype=dtype, device=gen.device)
         torch.nn.init.trunc_normal_(value, 0.0, 1.0, -2.0, 2.0,
                                     generator=gen)
         value = value * scale
     elif init == "embed":
-        value = torch.randn(shape, dtype=dtype, generator=gen)
+        value = torch.randn(shape, dtype=dtype, generator=gen,
+                            device=gen.device)
         value = value * (1.0 if scale is None else scale)
     else:
         raise ValueError(f"unknown init {init!r}")

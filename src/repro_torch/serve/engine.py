@@ -40,14 +40,20 @@ from repro_torch.core.batch_scaler import measured_peak_bytes
 from repro_torch.train.task import TensorSpec
 
 
-def tier_params(params, tier: int, ladder: str = "tpu", amax_tree=None):
+def tier_params(params, tier: int, ladder: str = "tpu", amax_tree=None,
+                device=None):
     """Weight set for one serving precision tier (floating leaves only).
     ``amax_tree`` (params-shaped scalars): known per-leaf absmax for the
     tier-0 cast. A stacked leaf (layers, ...) gets ONE absmax over all its
-    layers, as the reference casts each leaf whole."""
+    layers, as the reference casts each leaf whole. With ``device``, each
+    leaf moves there before its cast, one leaf at a time, so masters kept
+    on the host never sit on the card whole (a 15.7 B-parameter model's
+    f32 masters and one of its bf16 sets do not fit one card together)."""
     from repro_torch.kernels import ops
 
     def one(x, amax=None):
+        if device is not None:
+            x = x.to(device)
         if not x.is_floating_point():
             return x
         if tier == 2:
@@ -128,7 +134,8 @@ class ServeEngine:
         self.cache_dtype = cache_dtype
         self.aux_state = aux_state if aux_state is not None else {}
         self.params_by_tier = {t: tier_params(params, t, ladder,
-                                              amax_tree=amax_tree)
+                                              amax_tree=amax_tree,
+                                              device=self.device)
                                for t in self.tiers}
         self.input_spec = task.serve_input_spec(self.prompt_len)
         self.prefill_chunk = int(prefill_chunk) if prefill_chunk else None

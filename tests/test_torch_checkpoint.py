@@ -33,6 +33,12 @@ What must hold:
     step raises;
   * the ``Trainer`` takes a fault plan; ``ServeSession`` still refuses
     one by name.
+
+This file holds the format and integrity checks and the helpers; the
+trainer-to-trainer restores run in ``test_torch_checkpoint_interop.py``,
+resume in ``test_torch_checkpoint_resume.py``, preemption in
+``test_torch_checkpoint_preempt.py`` (files of their own, so xdist's
+loadfile workers share them).
 """
 import dataclasses
 import json
@@ -52,7 +58,6 @@ from repro.checkpoint import checkpoint as jck  # noqa: E402
 from repro.configs import smollm_135m as jconf  # noqa: E402
 from repro.core.controller import ControlState as JControl  # noqa: E402
 from repro.core.precision import TriAccelConfig as JTac  # noqa: E402
-from repro.data.synthetic import LMTaskStream as JStream  # noqa: E402
 from repro.resilience import faults as jfaults  # noqa: E402
 from repro.train import train_step as jts  # noqa: E402
 from repro.train.task import LMTask as JLMTask  # noqa: E402
@@ -63,14 +68,13 @@ from repro_torch import tree as tu  # noqa: E402
 from repro_torch.checkpoint import checkpoint as ck  # noqa: E402
 from repro_torch.configs import smollm_135m as conf  # noqa: E402
 from repro_torch.core.precision import TriAccelConfig  # noqa: E402
-from repro_torch.launch import train as launch_train  # noqa: E402
 from repro_torch.resilience import (CORRUPTION_KINDS,  # noqa: E402
-                                    Fault, FaultPlan, corrupt_checkpoint)
-from repro_torch.serve import ServeConfig, ServeSession  # noqa: E402
+                                    corrupt_checkpoint)
 from repro_torch.train import paper_harness  # noqa: E402
 from repro_torch.train.task import LMTask  # noqa: E402
 from repro_torch.train.train_step import TrainState  # noqa: E402
 from repro_torch.train.trainer import Trainer, TrainerConfig  # noqa: E402
+from test_torch_dense_archs import _one_intra_op_thread  # noqa: E402, F401
 
 S, B, VOCAB = 64, 2, 512
 LM = (2, 64, 4, 2, 16, 128, VOCAB)
@@ -147,6 +151,14 @@ def _assert_bitwise(got, want, keys=None):
 def _with_dir(jtr, d):
     jtr.tcfg = dataclasses.replace(jtr.tcfg, ckpt_dir=str(d))
     jtr.ckpt = jck.AsyncCheckpointer(str(d), jtr.tcfg.ckpt_keep)
+
+
+def _wait_for(flag):
+    for _ in range(1000):
+        if flag():
+            return True
+        time.sleep(0.001)
+    return False
 
 
 # ---------------------------------------------------------------- format --
@@ -228,105 +240,6 @@ def test_save_writes_the_reference_bytes(refs, which, tmp_path):
         port_tr.tcfg = dataclasses.replace(port_tr.tcfg, ckpt_dir=str(jdir))
         assert port_tr.maybe_restore() == int(want[".control.step"])
         _assert_bitwise(_port_host(port_tr._save_state()), want)
-
-
-# ---------------------------------------------------------------- interop --
-def _step_pair(jtr, ptr, k):
-    """One step on each side from their states, the reference's batch
-    ``k`` on both -> (reference host state, port host state, reference
-    metrics, port metrics)."""
-    jb = JStream(VOCAB, S, B, seed=5).batch(k)
-    pb = {n: bridge.tensor(v) for n, v in jax.device_get(jb).items()}
-    jtr.state, jm = jtr._get_step(B)(jtr.state, jb)
-    ptr.state, pm = ptr._step_fn(ptr.state, pb)
-    return (_ref_host(jtr._save_state()), _port_host(ptr._save_state()),
-            jax.device_get(jm), pm)
-
-
-def _assert_steps_agree(jtr, ptr, qdq: bool):
-    j0, p0 = _ref_host(jtr._save_state()), _port_host(ptr._save_state())
-    for k in range(2):
-        j1, p1, jm, pm = _step_pair(jtr, ptr, k)
-        assert bool(pm["grads_finite"]) and bool(jm["grads_finite"])
-        np.testing.assert_allclose(float(pm["loss"]), float(jm["loss"]),
-                                   rtol=1e-4)
-        for f in ("step", "codes", "loss_scale"):
-            assert _same(p1[f".control.{f}"], j1[f".control.{f}"]), f
-        np.testing.assert_allclose(p1[".control.var_ema"],
-                                   j1[".control.var_ema"], rtol=1e-2)
-        lr = float(jm["lr"])
-        assert float(pm["lr"]) == lr
-        for key in (k for k in j1 if k.startswith(".params")):
-            mk = ".opt_state['mu']" + key[len(".params"):]
-            m, n = p1[mk], j1[mk]
-            lim = 5e-2 * np.abs(n).max() + (2.0 ** -7 * np.abs(n) if qdq
-                                            else 0.0)
-            assert np.all(np.abs(m - n) <= lim), mk
-            dev = np.abs((p1[key] - j1[key]) - (p0[key] - j0[key])
-                         + lr * (m - n))
-            assert np.all(dev <= 2.0 ** -21 * (
-                np.abs(p0[key]) + np.abs(j0[key]) + np.abs(p1[key])
-                + np.abs(j1[key]))), key
-        j0, p0 = j1, p1
-
-
-@pytest.mark.parametrize("path", ["resident", "tree", "four_field"])
-@pytest.mark.parametrize("writer", ["reference", "port"])
-def test_trainer_checkpoint_restores_in_the_other_package(refs, path,
-                                                          writer, tmp_path):
-    """One package's ``Trainer`` writes at the end of its run, the other's
-    restores: masters, moments, control and aux bitwise; the 4-field state
-    (a reference-path run's) restored by both packages' fused trainers,
-    whose re-seeded compute copies are bitwise equal; then two further
-    steps on both sides from the same state agree."""
-    write_kind = "fused" if path == "resident" else "tree"
-    read_kind = "tree" if path == "tree" else "fused"
-    jtr = refs[write_kind if writer == "reference" else read_kind]
-    try:
-        _restore_across(refs, jtr, path, writer, write_kind, read_kind,
-                        tmp_path)
-    finally:
-        for t in refs.values():
-            t.tcfg = dataclasses.replace(t.tcfg, ckpt_dir=None)
-            t.ckpt = None
-
-
-def _restore_across(refs, jtr, path, writer, write_kind, read_kind,
-                    tmp_path):
-    if writer == "reference":
-        _with_dir(jtr, tmp_path)
-        jtr.ckpt.save(int(jtr.state.control.step), jtr._save_state(),
-                      block=True)
-        saved = _ref_host(jtr._save_state())
-        ptr = _port(read_kind, tmp_path)
-        assert ptr.maybe_restore() == int(saved[".control.step"])
-        readers = [ptr._save_state()]
-        if path == "four_field":         # the reference re-seeds it too
-            jtr = refs["fused"]
-            _with_dir(jtr, tmp_path)
-            assert jtr.maybe_restore() == int(saved[".control.step"])
-    else:
-        writer_tr = _port(write_kind, tmp_path)
-        writer_tr.run(2)
-        saved = _port_host(writer_tr._save_state())
-        _with_dir(jtr, tmp_path)
-        assert jtr.maybe_restore() == int(saved[".control.step"]) == 2
-        ptr = writer_tr
-        if path == "four_field":          # the port re-seeds it too
-            ptr = _port("fused", tmp_path)
-            assert ptr.maybe_restore() == 2
-    jgot, pgot = _ref_host(jtr._save_state()), _port_host(ptr._save_state())
-    keys = [k for k in saved if k.startswith((".params", ".opt_state",
-                                              ".control", ".aux_state"))]
-    assert any(k.startswith(".control") for k in keys)
-    _assert_bitwise(jgot, saved, keys)
-    _assert_bitwise(pgot, saved, keys)
-    comp = sorted(k for k in jgot if k.startswith(".compute"))
-    assert comp == sorted(k for k in pgot if k.startswith(".compute"))
-    assert bool(comp) == (read_kind == "fused")
-    if comp:
-        _assert_bitwise(pgot, jgot, comp)
-    _assert_steps_agree(jtr, ptr, qdq=read_kind == "tree")
 
 
 # ------------------------------------------------------------- integrity --
@@ -427,127 +340,3 @@ def test_background_write_error_surfaces_at_the_next_call(tmp_path):
     with pytest.raises(RuntimeError, match="background checkpoint"):
         ckpt.save(3, {"x": torch.zeros(3)})
     ckpt.wait()                                  # the error was raised once
-
-
-# ---------------------------------------------------------------- resume --
-@pytest.mark.parametrize("kind", ["fused", "tree"])
-def test_cpu_resume_is_bitwise_the_uninterrupted_run(kind, tmp_path):
-    whole = _port(kind)
-    whole.run(4)
-    first = _port(kind, tmp_path, ckpt_every=1)
-    first.run(2)
-    again = _port(kind, tmp_path, ckpt_every=1)
-    assert again.maybe_restore() == 2
-    log = again.run(2)
-    _assert_bitwise(_port_host(again._save_state()),
-                    _port_host(whole._save_state()))
-    assert [m["loss"] for m in log] == [m["loss"] for m in
-                                        whole.metrics_log[2:]]
-    # cadence: generations named by the step, holding step + 1, kept 3
-    assert sorted(ck._committed_steps(str(tmp_path))) == [2, 3, 4]
-
-
-def test_run_method_reports_resumed_from(tmp_path):
-    tr = paper_harness.make_trainer("triaccel", "resnet18", steps=2,
-                                    batch0=4, ckpt_dir=str(tmp_path),
-                                    device="cpu")[0]
-    assert tr.tcfg.ckpt_every == 10
-    tr.run(1)
-    res = paper_harness.run_method("triaccel", "resnet18", steps=2, batch0=4,
-                                   ckpt_dir=str(tmp_path), device="cpu")
-    assert res.resumed_from == 1 and len(res.log) == 1
-    assert res.log[0]["step"] == 1 and res.eff_score > 0
-    assert ck.latest_step(str(tmp_path)) == 2
-
-
-# ------------------------------------------------------------ preemption --
-def _wait_for(flag):
-    for _ in range(1000):
-        if flag():
-            return True
-        time.sleep(0.001)
-    return False
-
-
-def test_preemption_handler_chains_the_prior_sigterm_handler(signals_kept):
-    seen = []
-    signal.signal(signal.SIGTERM, lambda s, f: seen.append(s))
-    tr = _port("fused")
-    tr.install_preemption_handler()
-    signal.raise_signal(signal.SIGTERM)
-    assert _wait_for(lambda: tr._preempted)
-    assert seen == [signal.SIGTERM]              # the prior handler ran
-    tr._preempted = False
-    signal.raise_signal(signal.SIGINT)           # no KeyboardInterrupt
-    assert _wait_for(lambda: tr._preempted)
-
-
-def test_sigterm_checkpoints_exits_and_a_rerun_resumes(tmp_path,
-                                                      signals_kept):
-    """SIGTERM during step 1 of 3: a blocking checkpoint at the top of step
-    2 and ``SystemExit(143)``; a new trainer resumes at 2 and ends bitwise
-    where an uninterrupted run ends."""
-    tr = _port("fused", tmp_path)
-    tr.install_preemption_handler()
-    dispatch = tr._dispatch
-
-    def sigterm_in_step_1(step):
-        if step == 1:
-            signal.raise_signal(signal.SIGTERM)
-        return dispatch(step)
-    tr._dispatch = sigterm_in_step_1
-    with pytest.raises(SystemExit) as ei:
-        tr.run(3)
-    assert ei.value.code == 143
-    assert ck._committed_steps(str(tmp_path)) == [2]
-    again = _port("fused", tmp_path)
-    assert again.maybe_restore() == 2
-    again.run(1)
-    whole = _port("fused")
-    whole.run(3)
-    _assert_bitwise(_port_host(again._save_state()),
-                    _port_host(whole._save_state()))
-
-
-def test_launcher_resumes_after_sigterm(tmp_path, capsys, monkeypatch,
-                                        signals_kept):
-    """The launcher with ``--ckpt``: preempted by SIGTERM in step 1, the
-    same command again prints ``resumed at step 2`` and ends at the
-    uninterrupted run's ``control.step``, bitwise in its state."""
-    args = ["--arch", "smollm-135m", "--reduced", "--steps", "3", "--rungs",
-            "2", "--seq", "64", "--ladder", "gpu", "--device", "cpu"]
-    whole = launch_train.main(args)
-    dispatch = Trainer._dispatch
-
-    def sigterm_in_step_1(self, step):
-        if step == 1:
-            signal.raise_signal(signal.SIGTERM)
-        return dispatch(self, step)
-    monkeypatch.setattr(Trainer, "_dispatch", sigterm_in_step_1)
-    ckpt = ["--ckpt", str(tmp_path)]
-    capsys.readouterr()
-    with pytest.raises(SystemExit) as ei:
-        launch_train.main(args + ckpt)
-    assert ei.value.code == 143 and ck.latest_step(str(tmp_path)) == 2
-    monkeypatch.setattr(Trainer, "_dispatch", dispatch)
-    tr = launch_train.main(args + ckpt)
-    out = capsys.readouterr().out.splitlines()
-    assert out[0] == "resumed at step 2"
-    assert int(tr.state.control.step) == int(whole.state.control.step) == 3
-    _assert_bitwise(_port_host(tr._save_state()),
-                    _port_host(whole._save_state()))
-    assert ck.latest_step(str(tmp_path)) == 3
-
-
-def test_fault_plans_still_raise_by_name():
-    """The ``Trainer`` and the ``ServeSession`` take a ``FaultPlan`` and
-    keep it (resilience is ported on both sides)."""
-    plan = FaultPlan([Fault("train.sigterm", step=5)])
-    task = LMTask(conf._make(*LM, impl="naive"), device="cpu")
-    tr = Trainer(task, TriAccelConfig(**TAC), TrainerConfig(**TCFG),
-                 device="cpu", fault_plan=plan)
-    assert tr.fault_plan is plan and tr.rollback_events == []
-    sess = ServeSession(task, ServeConfig(prompt_len=8, total_len=16,
-                                          rungs=(1,), tiers=(1,)),
-                        device="cpu", fault_plan=plan)
-    assert sess.fault_plan is plan and sess.oom_events == []

@@ -36,6 +36,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
+from test_torch_dense_archs import _one_intra_op_thread  # noqa: E402, F401
 
 BF16, F32, F16 = torch.bfloat16, torch.float32, torch.float16
 SOURCE = (Path(fa.__file__).resolve().parent / "csrc" / "flash_bwd_sm90.cu")

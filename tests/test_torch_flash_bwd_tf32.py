@@ -37,6 +37,7 @@ import jax.numpy as jnp  # noqa: E402
 from repro.kernels import flash_attention as jfa  # noqa: E402
 from repro_torch import bridge  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
+from test_torch_dense_archs import _one_intra_op_thread  # noqa: E402, F401
 
 BF16, F32, F16 = torch.bfloat16, torch.float32, torch.float16
 SOURCE = (Path(fa.__file__).resolve().parent / "csrc" / "flash_bwd_tf32.cu")

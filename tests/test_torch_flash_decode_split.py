@@ -25,6 +25,7 @@ import numpy as np  # noqa: E402
 
 from repro.kernels import flash_attention as jfa  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
+from test_torch_dense_archs import _one_intra_op_thread  # noqa: E402, F401
 
 OUT_ATOL, OUT_RTOL = 2e-6, 2e-5
 N = fa.DECODE_CLUSTER

@@ -46,6 +46,7 @@ from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from test_torch_flash_bwd_tf32 import _inputs, _mm, _worst  # noqa: E402
 from test_torch_flash_bwd_tf32 import \
     tf32_emulation as bwd_emulation  # noqa: E402
+from test_torch_dense_archs import _one_intra_op_thread  # noqa: E402, F401
 
 BF16, F32, F16 = torch.bfloat16, torch.float32, torch.float16
 SOURCE = (Path(fa.__file__).resolve().parent / "csrc" / "flash_fwd_tf32.cu")

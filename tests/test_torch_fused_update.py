@@ -30,6 +30,7 @@ from repro.kernels import fused_update as jfu  # noqa: E402
 from repro_torch import bridge  # noqa: E402
 from repro_torch.kernels import fused_update as fu  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
+from test_torch_dense_archs import _one_intra_op_thread  # noqa: E402, F401
 
 N = 512
 TILE = 256

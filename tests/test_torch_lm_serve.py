@@ -41,6 +41,7 @@ from repro_torch.models import lm  # noqa: E402
 from repro_torch.serve import ServeConfig, ServeSession  # noqa: E402
 from repro_torch.serve import engine  # noqa: E402
 from repro_torch.train.task import LMTask  # noqa: E402
+from test_torch_dense_archs import _one_intra_op_thread  # noqa: E402, F401
 
 LOGIT_TOL = 0.02
 P, TOTAL, VOCAB = 256, 272, 512

@@ -30,8 +30,12 @@ order, one bf16 ulp, 2^-8 relative, here and there):
     cast to bf16 on each side) within the masters' gap plus half a bf16
     step of each, 2^-8 (|p| + |p_ref|), plus 2^-24; var_ema within rtol
     1e-2 (measured below 1e-3); the skipped (non-finite) step bitwise.
+
+This file holds the model checks and the helpers; the resident step and
+the serving amax table run in ``test_torch_lm_train_step.py``, the
+launcher and the ``Trainer`` in ``test_torch_lm_launcher.py`` (files of
+their own, so xdist's loadfile workers share them).
 """
-import os
 import signal
 
 import pytest
@@ -44,32 +48,22 @@ import numpy as np  # noqa: E402
 
 from repro.configs import smollm_135m as jconf  # noqa: E402
 from repro.core.batch_scaler import MemoryModel as JMemoryModel  # noqa
-from repro.core.controller import init_control as jinit_control  # noqa
-from repro.core.precision import TriAccelConfig as JTac  # noqa: E402
 from repro.data.synthetic import LMTaskStream as JStream  # noqa: E402
 from repro.kernels.layout import slab_view as jslab_view  # noqa: E402
 from repro.models import lm as jlm  # noqa: E402
 from repro.nn.module import split_params  # noqa: E402
-from repro.optim.optimizers import sgdm as jsgdm  # noqa: E402
-from repro.train import train_step as jts  # noqa: E402
-from repro.train.schedules import warmup_cosine as jwarmup  # noqa: E402
 from repro.train.task import LMTask as JLMTask  # noqa: E402
 from repro_torch import bridge  # noqa: E402
 from repro_torch import tree as tu  # noqa: E402
 from repro_torch.configs import smollm_135m as conf  # noqa: E402
 from repro_torch.core.batch_scaler import MemoryModel  # noqa: E402
-from repro_torch.core.precision import TriAccelConfig  # noqa: E402
 from repro_torch.data.synthetic import LMTaskStream, affine_orbit  # noqa
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels.layout import slab_view  # noqa: E402
-from repro_torch.launch import train as launch_train  # noqa: E402
 from repro_torch.models import lm  # noqa: E402
 from repro_torch.nn import blocks  # noqa: E402
-from repro_torch.optim.optimizers import sgdm  # noqa: E402
-from repro_torch.train.schedules import warmup_cosine  # noqa: E402
 from repro_torch.train.task import LMTask  # noqa: E402
-from repro_torch.train.train_step import make_train_step  # noqa: E402
-from repro_torch.train.trainer import Trainer, TrainerConfig  # noqa: E402
+from test_torch_dense_archs import _one_intra_op_thread  # noqa: E402, F401
 
 S, B, VOCAB = 256, 2, 512
 TAC = dict(ladder="gpu", t_ctrl=1, t_curv=40, tau_low=3e-9, tau_high=1e-5,
@@ -338,220 +332,3 @@ def test_lm_stream_is_the_reference_construction():
     clean = LMTaskStream(V, 1024, 8, seed=7, noise=0.0).batch(3)
     assert 0.03 < float((clean["tokens"] != noisy["tokens"]).float().mean()
                         ) < 0.07
-
-
-# ------------------------------------------------------------------ step --
-@pytest.fixture(scope="module")
-def ref_step(ref):
-    task, params, grouping = ref["task"], ref["params"], ref["grouping"]
-    tac, opt = JTac(**TAC), jsgdm(0.9, 5e-4)
-    view = jslab_view(params, grouping)
-    step = jax.jit(jts.make_train_step(
-        task, tac, opt, grouping, jwarmup(*SCHED), grad_clip=CLIP,
-        resident_params=params))
-
-    @jax.jit
-    def state_for(codes, loss_scale):
-        ctl = jinit_control(grouping.num_layers, tac)._replace(
-            codes=codes, loss_scale=loss_scale)
-        comp = jts.init_compute(task, params, grouping, ctl, tac)
-        st = jts.TrainState(params, ref["aux"], opt.init(params), ctl, comp)
-        return jts.pack_state(view, st, jnp.float32)
-
-    return dict(step=step, state_for=state_for, L=grouping.num_layers)
-
-
-def _port_step():
-    task = LMTask(conf.flash_test_config(2), device="cpu")
-    like, _ = task.init(torch.Generator(), device="meta")
-    grouping = task.grouping(like)
-    fn = make_train_step(task, TriAccelConfig(**TAC), sgdm(0.9, 5e-4),
-                         grouping, warmup_cosine(*SCHED), grad_clip=CLIP,
-                         resident_params=like)
-    return fn, slab_view(like, grouping)
-
-
-@pytest.mark.parametrize("case", ["bf16", "nonfinite"])
-def test_resident_lm_step_matches_reference(ref, ref_step, case):
-    L = ref_step["L"]
-    ls = np.float32(np.inf if case == "nonfinite" else 2.0 ** 15)
-    jstate = ref_step["state_for"](jnp.ones(L, jnp.int32), jnp.asarray(ls))
-    jnew, jm = jax.device_get(ref_step["step"](jstate, ref["batch"]))
-
-    fn, view = _port_step()
-    js = jax.device_get(jstate)
-    state = bridge.train_state(js.params, js.aux_state, js.opt_state,
-                               js.control._asdict(), js.compute)
-    new, m = fn(state, _batch(ref))
-
-    finite = case != "nonfinite"
-    assert bool(m["grads_finite"]) == bool(jm["grads_finite"]) == finite
-    c, jc = new.control, jnew.control
-    for k in ("step", "codes", "loss_scale", "good_steps", "ema_init"):
-        np.testing.assert_array_equal(getattr(c, k).numpy(),
-                                      np.asarray(getattr(jc, k)), err_msg=k)
-    f = lambda t: t.detach().float().numpy()     # noqa: E731
-    p0, p, jp = state.params.numpy(), f(new.params), np.asarray(jnew.params)
-    mo, jmo = f(new.opt_state["mu"]), np.asarray(jnew.opt_state["mu"])
-    cp, jcp = f(new.compute["slab"]), np.asarray(
-        jnew.compute["slab"]).astype(np.float32)
-    if not finite:
-        for a, b in ((p, p0), (p, jp), (mo, jmo), (cp, jcp),
-                     (new.compute["p_amax"].numpy(),
-                      jnew.compute["p_amax"]),
-                     (c.var_ema.numpy(), jc.var_ema)):
-            np.testing.assert_array_equal(a, np.asarray(b))
-        return
-    np.testing.assert_allclose(float(m["loss"]), float(jm["loss"]),
-                               rtol=1e-4)
-    for slot in view.slots:                           # leaf by leaf
-        rows = slice(slot.row_off, slot.row_off + slot.stack * slot.rows_per)
-        bound = 5e-2 * np.abs(jmo[rows]).max()
-        assert np.abs(mo[rows] - jmo[rows]).max() <= bound, slot.shape
-    lr = float(jm["lr"])
-    assert float(m["lr"]) == lr
-    dev = np.abs((p - jp) + lr * (mo - jmo))
-    assert np.all(dev <= 2.0 ** -21 * (np.abs(p0) + np.abs(p) + np.abs(jp)))
-    # the copy is the master cast to bf16 on each side: within the
-    # masters' gap plus half a bf16 step of each (masters near zero, the
-    # zero-initialised norm scales after one step, carry the gradient's
-    # relative gap into their copies)
-    lim = np.abs(p - jp) + 2.0 ** -8 * (np.abs(p) + np.abs(jp)) + 2.0 ** -24
-    assert np.all(np.abs(cp - jcp) <= lim)
-    np.testing.assert_allclose(c.var_ema.numpy(), np.asarray(jc.var_ema),
-                               rtol=1e-2)
-
-
-# ------------------------------------------------- serving amax table --
-def test_serving_amax_tree_feeds_tier_params():
-    """As the reference's ``tests/test_fused_update.py::
-    test_serving_amax_tree_feeds_tier_params``: after two fused steps on
-    the tpu ladder the carried table bounds every leaf's true absmax of
-    the bf16-cast master, and the tier-0 weight set built from it equals
-    ``qdq_cast`` with the same amax, bitwise (the reference's tier-0 set
-    with a given table: ``tests/test_torch_qdq_cast_out.py``). None on the
-    reference path."""
-    from repro_torch.serve import engine
-    task = LMTask(conf.flash_test_config(2), device="cpu")
-    tac = TriAccelConfig(ladder="tpu", t_ctrl=1000, enable_curvature=False,
-                         enable_batch=False, mem_cap_bytes=8e9)
-    tcfg = TrainerConfig(total_steps=2, seq_len=S, rungs=(B,),
-                         log_every=1000)
-    tr = Trainer(task, tac, tcfg, device="cpu")
-    tr.run(2)
-    amax_tree = tr.serving_amax_tree()
-    params = tr.params_tree()
-    leaves, amaxes = tu.leaves(params), tu.leaves(amax_tree)
-    assert len(leaves) == len(amaxes)
-    for leaf, amax in zip(leaves, amaxes):
-        true = leaf.detach().to(torch.bfloat16).float().abs().max()
-        assert amax.shape == () and float(amax) >= float(true)
-    got = engine.tier_params(params, 0, "tpu", amax_tree=amax_tree)
-    for leaf, amax, want in zip(leaves, amaxes, tu.leaves(got)):
-        direct = ops.qdq_cast(leaf.detach().float(), 0, "tpu", amax)
-        assert torch.equal(want.view(torch.int16),
-                           direct.to(torch.bfloat16).view(torch.int16))
-    off = Trainer(task, tac, TrainerConfig(seq_len=S, rungs=(B,),
-                                           fused_update=False),
-                  device="cpu")
-    assert off.serving_amax_tree() is None
-
-
-def test_serving_amax_tree_matches_reference_on_a_bridged_state(ref,
-                                                                 ref_step):
-    """The port's table on the reference's state after one resident step,
-    bridged as in ``test_resident_lm_step_matches_reference``, equals the
-    reference's, leaf for leaf: held against the reference's
-    ``view.amax_tree`` over the same ``p_amax`` (a reference ``Trainer``
-    would compile its whole step again)."""
-    L = ref_step["L"]
-    jstate = ref_step["state_for"](jnp.ones(L, jnp.int32),
-                                   jnp.asarray(np.float32(2.0 ** 15)))
-    js, _ = jax.device_get(ref_step["step"](jstate, ref["batch"]))
-    want = jslab_view(ref["params"], ref["grouping"]).amax_tree(
-        jnp.asarray(js.compute["p_amax"]), ref["params"])
-    tr = Trainer(LMTask(conf.flash_test_config(2), device="cpu"),
-                 TriAccelConfig(**TAC), TrainerConfig(seq_len=S,
-                                                      rungs=(B,)),
-                 device="cpu")
-    tr.state = bridge.train_state(js.params, js.aux_state, js.opt_state,
-                                  js.control._asdict(), js.compute)
-    got = tr.serving_amax_tree()
-    wl = jax.tree.leaves(jax.device_get(want))
-    gl = tu.leaves(got)
-    assert len(wl) == len(gl) == len(tu.leaves(tr.params_tree()))
-    for w, g in zip(wl, gl):
-        assert g.dtype == torch.float32 and g.shape == ()
-        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
-
-
-# -------------------------------------------------------------- launcher --
-def test_launcher_trains_on_the_cpu(capsys):
-    tr = launch_train.main(["--arch", "smollm-135m", "--reduced",
-                            "--steps", "3", "--rungs", "2", "--seq", "64",
-                            "--ladder", "gpu", "--device", "cpu"],
-                           t_ctrl=1, t_curv=2)
-    lines = capsys.readouterr().out.strip().splitlines()
-    assert len(lines) == 1 and '"loss"' in lines[0]      # log_every 10
-    assert int(tr.state.control.step) == 3
-    assert [r for _, r, _ in tr.scaler.history] == [2, 2]
-    assert float(tr.state.control.lam.abs().sum()) > 0   # fisher at step 2
-
-
-@pytest.mark.parametrize("flag", [["--ckpt"], ["--distributed"],
-                                  ["--no-triaccel"]])
-def test_launcher_unported_flags_raise(flag, capsys, tmp_path):
-    """``--distributed`` is not ported and raises. ``--ckpt`` raised until
-    checkpointing was ported: a run with ``--ckpt`` under ``tmp_path``
-    trains and checkpoints, and the same command again prints ``resumed at
-    step N``, ending at the first run's ``control.step`` with its state.
-    ``--no-triaccel`` raised until ``reference_step`` was ported: it now
-    trains the static bf16 baseline on the CPU, on the reference path,
-    with every control off and the rung fixed."""
-    if flag == ["--ckpt"]:
-        argv = ["--arch", "smollm-135m", "--reduced", "--seq", "64",
-                "--rungs", "2", "--ladder", "gpu", "--device", "cpu",
-                "--steps", "2", "--ckpt", str(tmp_path)]
-        first = launch_train.main(argv)
-        assert capsys.readouterr().out.splitlines()[0].startswith("{")
-        assert int(first.state.control.step) == 2
-        assert sorted(os.listdir(tmp_path)) == [
-            "step_000000000002", "step_000000000002.COMMITTED"]
-        again = launch_train.main(argv)
-        assert capsys.readouterr().out.splitlines() == ["resumed at step 2"]
-        assert int(again.state.control.step) == 2
-        assert torch.equal(again.state.params, first.state.params)
-        return
-    if flag == ["--distributed"]:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            launch_train.main(["--device", "cpu", "--steps", "1"] + flag)
-        return
-    tr = launch_train.main(["--arch", "smollm-135m", "--reduced", "--seq",
-                            "64", "--rungs", "2", "--ladder", "gpu",
-                            "--device", "cpu", "--steps", "2"] + flag)
-    lines = capsys.readouterr().out.strip().splitlines()
-    assert len(lines) == 1 and '"loss"' in lines[0]
-    assert not tr.fused and tr.state.compute == ()
-    assert not (tr.tac.dynamic_precision or tr.tac.enable_precision
-                or tr.tac.enable_curvature or tr.tac.enable_batch)
-    assert int(tr.state.control.step) == 2
-    assert all(x["grads_finite"] == 1.0 for x in tr.metrics_log)
-    assert tr.scaler.microbatch == 2 and tr.scaler.history == []
-
-
-def test_trainer_runs_the_flash_config_on_the_cpu():
-    """The main path's code at the 2-layer flash config: the attention
-    goes through the autograd Function (plain versions here) and the
-    fisher probe through the chunked path."""
-    task = LMTask(conf.flash_test_config(2), device="cpu")
-    tac = TriAccelConfig(ladder="gpu", t_ctrl=1, t_curv=2, b_curv=2,
-                         curvature_method="fisher")
-    tr = Trainer(task, tac, TrainerConfig(total_steps=3, seq_len=S,
-                                          rungs=(2,), log_every=1),
-                 device="cpu")
-    log = tr.run(3)
-    assert len(log) == 3
-    assert all(np.isfinite(x["loss"]) and x["grads_finite"] == 1.0
-               for x in log)
-    assert all(x["tokens"] == 2 * S for x in log)
-    assert float(tr.state.control.lam.abs().sum()) > 0

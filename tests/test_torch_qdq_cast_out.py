@@ -29,6 +29,7 @@ from repro_torch import tree as tu  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import qdq_cast as qc  # noqa: E402
 from repro_torch.serve import engine  # noqa: E402
+from test_torch_dense_archs import _one_intra_op_thread  # noqa: E402, F401
 
 SIZES = {"0": (0,), "1": (1,), "7": (7,), "8": (8,), "9": (9,),
          "17": (17,), "tile": (256, 512), "ragged": (37, 53)}

@@ -17,7 +17,11 @@ the reference package on the same numpy inputs:
     operation on both sides); adamw's moments within rtol 1e-6 and its
     masters within rtol 1e-6 plus 2^-22 of the three updates' summed
     magnitudes (``ADAMW_MASTER_BOUND``); the norm within rtol 1e-6;
-  * one ``reference_step`` of ResNet-18 (batch 2) and of the reduced LM
+  * one ``reference_step`` of ResNet-18 (batch 2; in
+    ``test_torch_reference_step_vision.py`` and, the tpu ladder's case
+    and the non-finite step, ``test_torch_reference_step_vision_tpu.py``:
+    files of their own, so xdist's loadfile workers share them) and of
+    the reduced LM
     (``flash_test_config(2)``, S 256, B 2), carried from the reference's
     state: the FP32 / static baseline (no QDQ), dynamic precision with
     mixed codes on each ladder (the in-loss QDQ), and a non-finite step
@@ -434,8 +438,9 @@ def _check_step(ref, task, case, loss_rtol, mom_rel, ema_rtol, fp8_layer,
         np.testing.assert_allclose(x, y, rtol=rtol, err_msg=str(i))
 
 
-@pytest.mark.parametrize("case", CASES)
-def test_vision_reference_step_matches_reference(vision_ref, case):
+def check_vision_reference_step(vision_ref, case):
+    """One ResNet-18 ``reference_step`` of ``case`` against the
+    reference's (the vision files' parametrized test)."""
     task = VisionTask(VisionConfig("resnet18"), device="cpu")
     layer_names = task.grouping(task.init(torch.Generator(),
                                           device="meta")[0]).names
@@ -460,34 +465,6 @@ def test_lm_reference_step_matches_reference(lm_ref, case):
     # amax^-2 = inf), so both sides must skip the step and keep the state
     _check_step(lm_ref, task, case, 1e-4, lambda n: 5e-2, lambda i: 1e-2,
                 fp8_layer=0, fp8_finite=False)
-
-
-def test_vision_qdq_gradient_matches_f64(vision_ref):
-    """Under the in-loss QDQ (codes 0/1/2 on the gpu ladder) the port's
-    f32 loss gradient of ResNet-18 stays within one bf16 grid step (2^-7)
-    of each leaf's largest magnitude of the same gradient evaluated in f64
-    (QDQ's casts included): the bound under which the step test above
-    holds the port where the reference strays."""
-    task = VisionTask(VisionConfig("resnet18"), device="cpu")
-    js = jax.device_get(vision_ref["state_for"](
-        "qdq_gpu", _codes("qdq_gpu", vision_ref["L"], 0), 1.0))
-    batch = {k: bridge.tensor(v) for k, v in
-             jax.device_get(vision_ref["batch"]).items()}
-    codes = torch.from_numpy(_codes("qdq_gpu", vision_ref["L"], 0))
-    fn = prec.make_qdq_fn(TriAccelConfig(**TACS["qdq_gpu"]))
-
-    def grads(dtype):
-        leaves, td = tu.flatten(bridge.tree(js.params))
-        wrt = [x.to(dtype).requires_grad_(True) for x in leaves]
-        b = dict(batch, images=batch["images"].to(dtype))
-        aux = tu.tree_map(lambda x: x.to(dtype), bridge.tree(js.aux_state))
-        loss = task.loss(tu.unflatten(td, wrt), aux, b, codes, fn)[0]
-        return torch.autograd.grad(loss, wrt)
-
-    for name, a, b in zip(vision_ref["names"], grads(torch.float32),
-                          grads(torch.float64)):
-        gap = float((a.double() - b).abs().max())
-        assert gap <= 2.0 ** -7 * float(b.abs().max()), name
 
 
 # ------------------------------------- the fused path and its oracle -----

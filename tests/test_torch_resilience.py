@@ -29,39 +29,36 @@ What must hold:
     step -lr m up to one f32 rounding on each side) carried through the
     run: 5e-2 of the leaf's largest total move plus 2^-21 (|p| + |p_ref|)
     a step.
+
+This file holds the fault plans, the watchdog, the corruption kinds, the
+OOM cases and the helpers; the rollback and preemption cases run in
+``test_torch_resilience_rollback.py``, the one plan through both trainers
+in ``test_torch_resilience_plan.py`` (files of their own, so xdist's
+loadfile workers share them).
 """
 import dataclasses
-import math
 import shutil
-import signal
 
 import pytest
 
 torch = pytest.importorskip("torch")
 
-import jax  # noqa: E402
 import numpy as np  # noqa: E402
 
-from repro.checkpoint import checkpoint as jck  # noqa: E402
-from repro.configs import smollm_135m as jconf  # noqa: E402
-from repro.core.precision import TriAccelConfig as JTac  # noqa: E402
 from repro import resilience as jres  # noqa: E402
-from repro.train.task import LMTask as JLMTask  # noqa: E402
-from repro.train.trainer import Trainer as JTrainer  # noqa: E402
-from repro.train.trainer import TrainerConfig as JTrainerConfig  # noqa
 from repro_torch import bridge  # noqa: E402
 from repro_torch import resilience as res  # noqa: E402
 from repro_torch import tree as tu  # noqa: E402
 from repro_torch.checkpoint import checkpoint as ck  # noqa: E402
 from repro_torch.configs import smollm_135m as conf  # noqa: E402
 from repro_torch.core.precision import TriAccelConfig  # noqa: E402
-from repro_torch.resilience import (DivergenceError, Fault,  # noqa: E402
-                                    FaultPlan, RecoveryConfig)
+from repro_torch.resilience import (Fault, FaultPlan,  # noqa: E402
+                                    RecoveryConfig)
 from repro_torch.train.task import LMTask  # noqa: E402
 from repro_torch.train.trainer import Trainer, TrainerConfig  # noqa: E402
 from test_torch_checkpoint import (LM, _assert_bitwise,  # noqa: E402
-                                   _narrow_tree, _port_host, _ref_host,
-                                   _wait_for, signals_kept)
+                                   _narrow_tree, _port_host)
+from test_torch_dense_archs import _one_intra_op_thread  # noqa: E402, F401
 
 S = 16
 PKGS = {"port": res, "reference": jres}
@@ -323,153 +320,3 @@ def test_oom_on_smallest_rung_escalates(tmp_path):
     with pytest.raises(ValueError, match="not an OOM"):
         other.run(1)
     assert other.oom_events == []
-
-
-def test_divergence_rollback_restores_and_demotes(tmp_path):
-    """A non-finite burst rolls back to the last committed generation with
-    the loss scale and ``lr_demote`` halved; each burst step keeps the
-    master and momentum slabs and the aux state bitwise; the run still
-    ends at its end, and a restart keeps the demotion."""
-    plan = FaultPlan([Fault("train.nonfinite", step=5, repeats=3)])
-    rec = RecoveryConfig(watchdog=True, max_nonfinite=3, max_rollbacks=2)
-    tr = _trainer(tmp_path, total=10, ladder="gpu", plan=plan, recovery=rec,
-                  ckpt_every=2)
-    dispatch, skipped = tr._dispatch, []
-
-    def watch(step):
-        kept = lambda st: (st.params, st.opt_state, st.aux_state)  # noqa
-        before = _snap(kept(tr.state))
-        state, metrics, rung = dispatch(step)
-        if not bool(metrics["grads_finite"]):
-            _assert_bitwise(_snap(kept(state)), before)
-            skipped.append(step)
-        return state, metrics, rung
-    tr._dispatch = watch
-    tr.run()
-    assert skipped == [5, 6, 7]
-    assert len(tr.rollback_events) == 1
-    diverged, restored = tr.rollback_events[0]
-    assert (diverged, restored) == (7, 5)    # generation 4 holds step 5
-    assert int(tr.state.control.step) == 10
-    assert float(tr.state.control.lr_demote) == 0.5
-    assert tr.state.control.lr_demote.dtype == torch.float32
-    assert tr.state.control.loss_scale.dtype == torch.float32
-    assert math.isfinite(float(tr.state.control.loss_scale))
-    again = _trainer(tmp_path, total=10, ladder="gpu")
-    assert again.maybe_restore() == 10
-    assert float(again.state.control.lr_demote) == 0.5
-
-
-def test_rollback_without_checkpoint_raises():
-    plan = FaultPlan([Fault("train.nonfinite", step=2, repeats=3)])
-    rec = RecoveryConfig(watchdog=True, max_nonfinite=3)
-    tr = _trainer(None, total=8, ladder="gpu", plan=plan, recovery=rec)
-    with pytest.raises(DivergenceError, match="no committed checkpoint"):
-        tr.run()
-
-
-def test_rollback_budget_exhausted_raises(tmp_path):
-    plan = FaultPlan([Fault("train.nonfinite", step=3, repeats=None)])
-    rec = RecoveryConfig(watchdog=True, max_nonfinite=2, max_rollbacks=1)
-    tr = _trainer(tmp_path, total=12, ladder="gpu", plan=plan, recovery=rec,
-                  ckpt_every=2)
-    with pytest.raises(DivergenceError, match="budget"):
-        tr.run()
-    assert len(tr.rollback_events) == 1
-
-
-def test_preemption_handler_chains_prior_and_registers_sigint(tmp_path,
-                                                              signals_kept):
-    seen = []
-    signal.signal(signal.SIGTERM, lambda s, f: seen.append(s))
-    tr = _trainer(tmp_path)
-    tr.install_preemption_handler()
-    signal.raise_signal(signal.SIGTERM)
-    assert _wait_for(lambda: tr._preempted)
-    assert seen == [signal.SIGTERM]
-    tr._preempted = False
-    signal.raise_signal(signal.SIGINT)          # must not KeyboardInterrupt
-    assert _wait_for(lambda: tr._preempted)
-
-
-def test_preemption_checkpoints_and_exits(tmp_path, signals_kept):
-    """The sigterm fault drives the real handler path: blocking save, exit
-    143, a restart resumes at the preempted step; a ckpt.corrupt fault on
-    that save makes the restart fall back a generation."""
-    plan = FaultPlan([Fault("train.sigterm", step=3, repeats=1)])
-    tr = _trainer(tmp_path, total=6, plan=plan)
-    tr.install_preemption_handler()
-    with pytest.raises(SystemExit) as ei:
-        tr.run()
-    assert ei.value.code == 143
-    tr2 = _trainer(tmp_path, total=6)
-    assert tr2.maybe_restore() == 3
-    tr2.ckpt = None
-    tr2.run(3)
-    assert int(tr2.state.control.step) == 6
-    torn = tmp_path / "torn"
-    plan = FaultPlan([Fault("train.sigterm", step=4),
-                      Fault("ckpt.corrupt", step=4)], seed=1)
-    tr = _trainer(torn, total=6, plan=plan, ckpt_every=2)
-    tr.install_preemption_handler()
-    with pytest.raises(SystemExit):
-        tr.run()
-    with pytest.warns(RuntimeWarning, match="failed verification"):
-        assert _trainer(torn, total=6).maybe_restore() == 3
-
-
-# ------------------------------------------------------- cross-package -----
-def _cross_plan(pkg):
-    F = pkg.Fault
-    return pkg.FaultPlan([F("train.step_oom", step=0, rung=4, repeats=None),
-                          F("train.nonfinite", step=2, repeats=3)], seed=3)
-
-
-def test_one_plan_through_both_trainers(tmp_path):
-    """OOM at step 0 on rung 4, a burst at steps 2-4 rolled back to
-    generation 2: the reference's ``Trainer`` and the port's, from the
-    same weights (the reference's, through a checkpoint) and the same
-    batches, give the same event trails and fault log, the same control,
-    and masters within the stated tolerance."""
-    tac = dict(ladder="gpu", t_ctrl=4, enable_curvature=False,
-               mem_cap_bytes=64e9)
-    common = dict(total_steps=6, seq_len=S, rungs=(2, 4), start_rung=4,
-                  ckpt_every=2, log_every=1, base_lr=1e-2)
-    rec = dict(watchdog=True, max_nonfinite=3, max_rollbacks=2)
-    jplan, plan = _cross_plan(jres), _cross_plan(res)
-    jdir, pdir = tmp_path / "ref", tmp_path / "port"
-    jtr = JTrainer(JLMTask(jconf._make(*LM, impl="naive")), JTac(**tac),
-                   JTrainerConfig(ckpt_dir=str(jdir),
-                                  recovery=jres.RecoveryConfig(**rec),
-                                  **common), fault_plan=jplan)
-    jck.save_checkpoint(str(jdir), 0, jtr._save_state())
-    shutil.copytree(jdir, pdir)
-    ptr = Trainer(_task(), TriAccelConfig(**tac),
-                  TrainerConfig(ckpt_dir=str(pdir),
-                                recovery=RecoveryConfig(**rec), **common),
-                  device="cpu", fault_plan=plan)
-    assert ptr.maybe_restore() == 0
-    p0 = _host(ptr)
-
-    def bridged(rung, step):
-        return {k: bridge.tensor(v) for k, v in
-                jax.device_get(jtr._batch_for_rung(rung, step)).items()}
-    ptr._batch_for_rung = bridged
-    jtr.run()
-    ptr.run()
-    assert ptr.oom_events == jtr.oom_events == [(0, 4)]
-    assert ptr.rollback_events == jtr.rollback_events == [(4, 3)]
-    assert plan.log == jplan.log and len(plan.log) == 4
-    got = _host(ptr)
-    want = _ref_host(jtr._save_state())
-    for f in ("step", "loss_scale", "lr_demote"):
-        assert got[f".control.{f}"].tobytes() == \
-            want[f".control.{f}"].tobytes(), f
-    assert float(got[".control.lr_demote"]) == 0.5
-    applied = 4                                  # steps 0, 1, 3 and 4
-    for key in (k for k in want if k.startswith(".params")):
-        p, q, start = got[key], want[key], p0[key]
-        lim = 5e-2 * np.abs(q - start).max() + 2.0 ** -21 * applied * (
-            np.abs(p) + np.abs(q))
-        assert np.all(np.abs(p - q) <= lim), key
-

@@ -1,8 +1,9 @@
 """Port parity: one slab-resident train step of ResNet-18 (batch 2) from a
 shared state, carried from the reference into the port through
 ``repro_torch.bridge`` — all-bf16 codes, mixed 0/1/2 codes, and a
-non-finite step (loss scale inf, so the update is skipped) — then a short
-``run_method`` on the CPU and the device contract of the entry points.
+non-finite step (loss scale inf, so the update is skipped). A short
+``run_method`` on the CPU and the device contract of the entry points run
+in ``test_torch_run_method.py`` and ``test_torch_run_method_fp32.py``.
 
 Tolerances, all measured against the reference's own numbers:
   * loss within rtol 1e-5; BatchNorm running stats within rtol 1e-5;
@@ -43,7 +44,6 @@ from repro_torch.core.precision import TriAccelConfig  # noqa: E402
 from repro_torch.kernels.layout import slab_view  # noqa: E402
 from repro_torch.models.vision import VisionConfig  # noqa: E402
 from repro_torch.optim.optimizers import sgdm  # noqa: E402
-from repro_torch.train import paper_harness  # noqa: E402
 from repro_torch.train.schedules import warmup_cosine  # noqa: E402
 from repro_torch.train.task import VisionTask  # noqa: E402
 from repro_torch.train.train_step import make_train_step  # noqa: E402
@@ -162,56 +162,3 @@ def test_resident_step_matches_reference(ref, case):
                         for n in layer_names])
     np.testing.assert_allclose(ve[first], jve[first], rtol=5e-2)
     np.testing.assert_allclose(ve[~first], jve[~first], rtol=1e-3)
-
-
-def test_run_method_smoke_on_cpu():
-    res = paper_harness.run_method("triaccel", "resnet18", steps=3,
-                                   batch0=4, device="cpu")
-    assert len(res.log) == 3
-    assert all(np.isfinite(m["loss"]) for m in res.log)
-    assert res.final_batch in (2, 4, 6, 8)
-    assert len(res.codes) == 11 and set(res.codes) <= {0, 1, 2}
-    assert 0.0 <= res.accuracy <= 100.0
-    assert res.measured_bytes == {}          # the analytic model answers
-
-
-def test_entry_points_need_a_card_for_cuda(monkeypatch):
-    """Asking for cuda without a card raises; nothing falls back."""
-    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    cfg = VisionConfig("resnet18")
-    with pytest.raises(RuntimeError, match="is_available"):
-        VisionTask(cfg)
-    with pytest.raises(RuntimeError, match="is_available"):
-        paper_harness.run_method("triaccel", "resnet18", steps=1,
-                                 device="cuda")
-
-
-@pytest.mark.parametrize("args", [("fp32", "resnet18"),
-                                  ("triaccel", "efficientnet_b0")])
-def test_unported_methods_raise(args):
-    """Both raised here until they were ported. The FP32 baseline now
-    runs on the CPU, on the reference path over tree-form state, at the
-    fixed rung, with the codes reported as fp32. EfficientNet-B0 now
-    trains on the resident fused path over its 21 layers (7,936 slab
-    rows); ``tests/test_torch_vision_effnet.py`` runs its ``run_method``
-    end to end."""
-    if args[0] != "fp32":
-        trainer = paper_harness.make_trainer(*args, steps=1, batch0=4,
-                                             device="cpu")[0]
-        assert trainer.fused and trainer.resident
-        assert (trainer.view.rows, trainer.view.num_layers) == (7936, 21)
-        log = trainer.run(1)
-        assert len(log) == 1 and np.isfinite(log[0]["loss"])
-        assert trainer.state.control.codes.shape == (21,)
-        return
-    trainer = paper_harness.make_trainer(*args, steps=2, batch0=4,
-                                         device="cpu")[0]
-    assert not trainer.fused and not trainer.resident
-    assert trainer.params_tree() is trainer.state.params
-    res = paper_harness.run_method(*args, steps=2, batch0=4, device="cpu")
-    assert len(res.log) == 2
-    assert all(np.isfinite(m["loss"]) and m["grads_finite"] == 1.0
-               for m in res.log)
-    assert res.codes == [2] * 11
-    assert res.final_batch == 4 and res.batch_history == []
-    assert 0.0 <= res.accuracy <= 100.0

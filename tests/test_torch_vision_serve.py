@@ -54,6 +54,7 @@ from repro_torch.serve import ServeConfig, ServeSession  # noqa: E402
 from repro_torch.serve import engine  # noqa: E402
 from repro_torch.train import task as ttask  # noqa: E402
 from repro_torch.train.serve import make_infer_fn  # noqa: E402
+from test_torch_dense_archs import _one_intra_op_thread  # noqa: E402, F401
 
 TOL = {2: 1e-5, 1: 2e-2, 0: 2e-2}
 
