@@ -206,18 +206,18 @@ Phases (any failure raises and the script exits non-zero):
      request's TTFT against an unshed one's, the real OOM's failed admit,
      its recovery and the retry, the phase's seconds;
  11. the rest of serving, its seconds printed against a 90 s target:
-     (a) chunked prefill over smollm-135m at full width and depth
-     (``CH_*``): four prompts of 17, 64, 100 and 128 tokens in chunks of
-     16 through a session at rungs 1/2, tiers 0/1, an injected
+     (a) chunked prefill over smollm-135m at full width, 8 of its 30
+     layers (``SERVE_REST_DEPTH``; ``CH_*``): four prompts of 17, 64,
+     100 and 128 tokens in chunks of 16 through a session at rungs 1/2, tiers 0/1, an injected
      ``serve.step_oom`` failing a chunk at rung 2 (poison, step-down, the
      youngest shed and replayed), every request done, no path run after
-     ``warm()``, no flash forward and 30 ``flash_decode`` launches a
-     decode step and a prompt token; the 128-token request's tokens
+     ``warm()``, no flash forward and one ``flash_decode`` launch a layer
+     a decode step and a prompt token; the 128-token request's tokens
      against a whole-prompt session's (equal or a near-tie), and the
      first-token logits and cache rows of whole-prompt against chunked
      prefill within ``CH_TOL``; two chunk tokens profiled; (b) SLO
-     traffic: ``drive`` over a ``poisson_trace`` of two classes
-     (``SLO_*``) through ``schedule="slo"``, chunk 16, rungs 1/2/4: no
+     traffic at the same depth: ``drive`` over a ``poisson_trace`` of two
+     classes (``SLO_*``) through ``schedule="slo"``, chunk 16, rungs 1/2/4: no
      path run after ``warm()``, done plus rejected equal to the offered,
      the launches exact; the class report, TTFT p50/p99 by class, tok/s,
      the decode step by rung; (c) vision inference: ResNet-18 and
@@ -237,13 +237,14 @@ Phases (any failure raises and the script exits non-zero):
      1024), flash_decode at B 4 against its full-length serving cache
      (rep 1 / D 64, rep 3 / D 128, rep 2 / D 256; gemma3-4b's local
      layers' plain decode attention on its 1024-slot ring timed too), and
-     fused_stats / fused_apply on the model's whole training slab (1.6-2.1
-     B elements; the plain versions chunk by chunk, the apply donated,
-     bitwise); then training at full width through
+     fused_stats / fused_apply on the training slab of the depth below
+     (0.72-1.9 B elements; the plain versions chunk by chunk, the apply
+     donated, bitwise); then training at full width through
      ``launch.train.main --arch ... --mem-cap-gb 80`` at the depth of
-     ``DENSE_DEPTH`` (stablelm-1.6b's full 24 layers, minitron-4b and
-     gemma3-4b 16 since PR 32, their full depth in PR 31) (``DENSE_STEPS``
-     steps, rungs 1/2, S 1024, gemma3-4b S 2048; the seconds of
+     ``DENSE_DEPTH`` (stablelm-1.6b 6 layers, minitron-4b 4, gemma3-4b
+     one period and its 4 local, 10; their full-depth numbers are in
+     PERF.md section 6) (``DENSE_STEPS`` steps, rungs 1/2, S 1024,
+     gemma3-4b S 2048; the seconds of
      ``task.init``, the peak), its launches exact (the forward 2 x L a
      step on the tensor cores, delta, dQ and dK/dV L a step, one fused
      update a step); the two-pass qdq_cast on the trained model's largest
@@ -253,9 +254,9 @@ Phases (any failure raises and the script exits non-zero):
      of 32 tokens, prompt 1024 and cache 2048 (gemma3-4b 2048 and 4096: its
      local layers' rings wrap at prefill and again while decoding), its
      launches exact (the forward L a prefill on the tensor cores,
-     flash_decode once a decode step for each unwindowed layer: 24, 16,
-     2; a two-pass cast a leaf), a decode step profiled (gemma3-4b: the
-     14 local layers' share of its device time); then a prefill and 4
+     flash_decode once a decode step for each unwindowed layer: 6, 4,
+     1; a two-pass cast a leaf), a decode step profiled (gemma3-4b: the
+     9 local layers' share of its device time); then a prefill and 4
      teacher-forced decode steps of the trained weights' first layers
      (2; gemma3-4b one period, 5 local and 1 global, prompt 1280) on the
      card against the CPU, logits within 4 %;
@@ -264,11 +265,13 @@ Phases (any failure raises and the script exits non-zero):
      versions, timed beside them, SDPA and the bounds: the tensor-core
      forward with the LSE and the three backward kernels at B 2, S 1024,
      16 heads, D 192 (128 nope + 64 rope) and Dv 128, and fused_stats /
-     fused_apply on the cut model's training slab (4.6 B elements,
-     bitwise, donated); then training at full width, cut in depth to the
-     dense layer and ``MOE_TRAIN_MOE_LAYERS`` MoE layers (the most whose
-     peak fits), through ``launch.train.main`` with the cut config
-     (``_registry_config``; the launcher has no depth flag): ten steps at
+     fused_apply on the slab of the dense layer and
+     ``MOE_FUSED_MOE_LAYERS`` MoE layers (7: 4.6 B elements, past 2^32,
+     bitwise, donated; untrained); then training at full width, cut in
+     depth to the dense layer and ``MOE_TRAIN_MOE_LAYERS`` MoE layers (1; 7 is the
+     most whose peak fits), through ``launch.train.main``
+     with the cut config (``_registry_config``; the launcher has no depth
+     flag): ten steps at
      rungs 1/2, S 1024, ``task.init`` seconds, the step time and the peak,
      launches exact (the forward 2 x L a step and delta, dQ and dK/dV L a
      step on the tensor cores, one fused update a step), the MoE aux
@@ -287,7 +290,29 @@ Phases (any failure raises and the script exits non-zero):
      and its dispatch's share of it; then a prefill and 4 teacher-forced
      decode steps through layers 0 (dense) and 1 (MoE) on the card
      against the CPU: the chosen experts equal except at near-ties
-     (counted), logits within 4 %.
+     (counted), logits within 4 %;
+ 14. the recurrent architectures (``recurrent_phase``, ``RECURRENT``):
+     mamba2-370m (48 Mamba-2 SSD layers, no attention) and
+     recurrentgemma-2b (8 x (RG-LRU, RG-LRU, local MQA at 10 / 1 heads of
+     256, window 2048) + 2 RG-LRU). For each: its kernels against their
+     plain versions at its shapes (the fused update on its whole slab;
+     for recurrentgemma the tensor-core forward and the three backward
+     kernels at B 2, S 4096, rep 10, D 256, window 2048, and the forward
+     at the prefill's B 1, S 2048); training at full width through
+     ``launch.train.main`` at full depth (mamba2 S 1024, rungs 2/4/8;
+     recurrentgemma S 4096, rungs 1/2), ten steps, launches exact (the forward 2 x A a step and delta,
+     dQ and dK/dV A a step for its A attention layers, one fused update a
+     step), three more steps timed and one profiled; the trained weights
+     served at full width and depth through ``ServeSession(params=...)``
+     (mamba2: prompt 1024, cache 2048; recurrentgemma: prompt 2048, cache
+     4096, so the 2048-slot rings wrap), rungs 1/2/4, tiers 1 then 0, six
+     requests of 32 tokens, launches exact (the forward A a prefill, no
+     flash_decode: no unwindowed attention cache, a two-pass cast a leaf
+     of the tier-0 set), three decode steps profiled (device busy, host
+     gaps, device operations a step); then a prefill and 4 teacher-forced
+     decode steps through the first layers (mamba2's first 2,
+     recurrentgemma's first period) on the card against the CPU, logits
+     within 4 %.
 
 A kernel that runs on several main paths at different shapes
 (fused_stats and fused_apply: ResNet-18, EfficientNet-B0 and LM training;
@@ -332,7 +357,11 @@ tier-0 vision weight sets, timed over both models' leaves. Phase 12 adds
 (``window_1024_ms``: gemma3-4b's windowed shape; ``flash_decode`` with
 ``local_layer_device_ms`` and ``local_layers_share``). Phase 13 adds
 ``<kernel>@deepseek-v2-lite-16b`` for each of ``MOE_ROWS`` the same way
-(no ``flash_decode``: MLA's decode launches none).
+(no ``flash_decode``: MLA's decode launches none). Phase 14 adds
+``<kernel>@mamba2-370m`` (the fused update and the tier-0 cast: no
+attention runs on the model) and ``<kernel>@recurrentgemma-2b`` (those
+and the flash forward and backward, ``prefill_ms`` the forward at the
+prefill's shape).
 ``qdq_cast`` is the two-pass form the serving path launches,
 ``qdq_cast_one_pass`` the one-pass form the LM path's tier-0 set launches, both timed over the 11 leaves, f32 in
 and bf16 out as those paths cast (``f32_out_*``: the same with f32 out).
@@ -480,9 +509,11 @@ def ptxas_kernels(text: str):
             [str(filt)], input="\n".join(n for n, _, _ in out),
             capture_output=True, text=True, timeout=60).stdout.splitlines()
         if len(names) == len(out):
+            bare = [d.replace("(int)", "").replace("(bool)1", "true")
+                    .replace("(bool)0", "false") for d in names]
             out = [(re.sub(r"^void |<unnamed>::|\(anonymous namespace\)::",
-                           "", re.sub(r"\(.*", "", d.replace("(int)", ""))),
-                    r, sp) for d, (_, r, sp) in zip(names, out)]
+                           "", re.sub(r"\(.*", "", d)),
+                    r, sp) for d, (_, r, sp) in zip(bare, out)]
     return out
 
 
@@ -1250,6 +1281,7 @@ def _profile(run, steps: int, family, what: str) -> dict:
     for n, v in sorted(top.items(), key=lambda kv: -kv[1])[:8]:
         log(f"    {v / steps / 1e3:8.4f} ms  {n[:100]}")
     return {"busy_ms": busy / steps / 1e3, "ops": len(kern) / steps,
+            "host_ms": wall_us / steps / 1e3,
             "families": {k: v / steps / 1e3 for k, v in fam.items()}}
 
 
@@ -2084,8 +2116,10 @@ def check_flash_bwd(dev, bw, f32_ops, tc_rate, tf32_rate):
             stream),
         "dq": lambda: tc_bwd.tri_flash_bwd_dq_tc(*ins, ptr(dq), *dims,
                                                  stream),
-        "dkv": lambda: tc_bwd.tri_flash_bwd_dkv_tc(*ins, ptr(dk), ptr(dv),
-                                                   *dims, stream),
+        "dkv": lambda: tc_bwd.tri_flash_bwd_dkv_tc(
+            *ins, ptr(dk), ptr(dv),
+            *(w.data_ptr() if w is not None else None
+              for w in fa.dkv_workspace(k, v, H)), *dims, stream),
     }
     simt_bf16 = {   # the SIMT kernels on the same bf16 inputs
         "dq": lambda: lib.tri_flash_bwd_dq(*ins, ptr(dq), 1, *dims,
@@ -4265,6 +4299,11 @@ VIS_WAVES = (16, 32, 48)
 VIS_TOL = {2: 1e-3, 1: 3e-2, 0: 3e-2}
 #: phase 11's seconds are printed against this target
 PHASE11_TARGET_S = 90.0
+#: 11a and 11b serve smollm-135m cut to this many of its 30 layers (full
+#: width): each prompt token is a host-bound B-1 decode step, so their
+#: time goes with the depth; cut from 30 to keep the whole script inside
+#: its clock with phase 14 (their 30-layer numbers are in PERF.md)
+SERVE_REST_DEPTH = 8
 
 
 def _margins(logits: torch.Tensor) -> torch.Tensor:
@@ -4326,7 +4365,9 @@ def _teacher_margins(eng, prompt, tokens, tier: int) -> list:
 
 def chunked_prefill_phase(seed: int = 0, device="cuda",
                           reduced: bool = False) -> dict:
-    """Phase 11a: chunked prefill at smollm-135m's full width and depth.
+    """Phase 11a: chunked prefill at smollm-135m's full width, at the depth
+    the registry gives (``serve_rest_phase`` cuts it to
+    ``SERVE_REST_DEPTH`` layers).
     A session with ``prefill_chunk`` ``CH_CHUNK`` (rungs 1/2, tiers 0/1
     warmed, tier 1 served, cache ``CH_CACHE``) serves four prompts of
     ``CH_PROMPTS`` tokens; ``serve.step_oom`` at step ``CH_OOM_STEP`` on
@@ -4441,8 +4482,9 @@ def chunked_prefill_phase(seed: int = 0, device="cuda",
 
 def slo_traffic_phase(seed: int = 0, device="cuda",
                       reduced: bool = False) -> dict:
-    """Phase 11b: SLO traffic replayed at smollm-135m's full width and
-    depth: ``schedule="slo"``, ``prefill_chunk`` 16, rungs ``SLO_RUNGS``,
+    """Phase 11b: SLO traffic replayed at smollm-135m's full width, at the
+    depth the registry gives (``SERVE_REST_DEPTH`` layers in
+    ``serve_rest_phase``): ``schedule="slo"``, ``prefill_chunk`` 16, rungs ``SLO_RUNGS``,
     tier 1, cache ``SLO_CACHE``, class 0's step budget 60 s; ``drive``
     over ``poisson_trace(SLO_CLASSES, SLO_STEPS, seed=SLO_SEED)``. No path
     runs after ``warm()`` (``warm_s`` 0.0); completed plus rejected equal
@@ -4641,7 +4683,9 @@ def serve_rest_phase(card: str) -> dict:
     and power limit. -> the launches by path."""
     t_phase = time.perf_counter()
     t0 = time.perf_counter()
-    ch = chunked_prefill_phase()
+    cut = _registry_config("smollm-135m", _lm_cfg(SERVE_REST_DEPTH))
+    with cut:
+        ch = chunked_prefill_phase()
     t_a = time.perf_counter() - t0
     sess = ch.pop("sess")
     eng = sess.engine
@@ -4650,14 +4694,15 @@ def serve_rest_phase(card: str) -> dict:
     caches = eng.init_caches(1)
     # two lanes of a chunk: the profiler's own cost grows with the events
     _profile(lambda: eng.chunk_admit(1, 1, caches, 0, chunk, 0, 2, True),
-             2, _serve_family, f"a chunk at B 1, per prompt token (30 "
-             f"layers, cache {CH_CACHE}; 2 tokens)")
+             2, _serve_family, f"a chunk at B 1, per prompt token "
+             f"({SERVE_REST_DEPTH} layers, cache {CH_CACHE}; 2 tokens)")
     del sess, eng, caches
     cmp = ", ".join(f"{P}/t{t}: logits {r['logits']:.4f}, K {r['k']:.4f}, "
                     f"V {r['v']:.4f}"
                     for (P, t), r in ch["compare"].items())
     got, want = ch["tokens"]
-    log(f"serving, chunked prefill (11a), smollm-135m (30 layers), prompts "
+    log(f"serving, chunked prefill (11a), smollm-135m ({SERVE_REST_DEPTH} "
+        f"layers), prompts "
         f"{CH_PROMPTS}, chunk {CH_CHUNK}, cache {CH_CACHE} ({card}): "
         f"{ch['prompt_tokens']} prompt tokens through the chunk path "
         f"(warm-ups included), path runs {ch['runs']}, launches "
@@ -4674,10 +4719,12 @@ def serve_rest_phase(card: str) -> dict:
         + ("" if ch["margins"] is None else "; top-2 margins along the "
            f"chunked tokens {[round(m, 4) for m, _ in ch['margins']]}"))
     t0 = time.perf_counter()
-    slo = slo_traffic_phase()
+    with _registry_config("smollm-135m", _lm_cfg(SERVE_REST_DEPTH)):
+        slo = slo_traffic_phase()
     t_b = time.perf_counter() - t0
     rep = slo["report"]
-    log(f"serving, SLO traffic (11b), smollm-135m (30 layers), rungs "
+    log(f"serving, SLO traffic (11b), smollm-135m ({SERVE_REST_DEPTH} "
+        f"layers), rungs "
         f"{SLO_RUNGS}, cache {SLO_CACHE}, chunk 16, trace of {SLO_STEPS} "
         f"steps (seed {SLO_SEED}), {slo['offered']} offered ({card}): "
         f"{rep['steps']} steps, {rep['decoded_tokens']} tokens, "
@@ -4837,12 +4884,13 @@ DENSE_CPU_TOTAL = 2048
 DENSE_STEPS, DENSE_RUNGS, DENSE_MEM_CAP_GB = 10, "1,2", 80
 #: serving: requests of this many tokens, four up front and two later
 DENSE_REQUESTS, DENSE_TOKENS = 6, 32
-#: phase 12 trains and serves minitron-4b and gemma3-4b at half depth, 16
-#: layers (minitron-4b's first 16; gemma3-4b two periods of 5 local + 1
-#: global, then its 4 local), so the script keeps inside its clock on a
-#: slow host (at full depth it took 740.7-971.2 s on an H100 80GB HBM3,
-#: PR 32); their full-depth numbers are PR 31's (PERF.md section 6)
-DENSE_DEPTH = {"minitron-4b": 16, "gemma3-4b": 2}
+#: phase 12 trains and serves the three models cut in depth, so the script
+#: keeps inside its clock on a slow host: stablelm-1.6b at 6 of its 24
+#: layers, minitron-4b at 4 of 32, gemma3-4b at one period of 5 local + 1
+#: global and its 4 local, 10 of 34 (with all three at full depth and no
+#: phase 14 the script took 740.7-971.2 s on an H100 80GB HBM3); their
+#: full-depth numbers are in PERF.md section 6
+DENSE_DEPTH = {"stablelm-1.6b": 6, "minitron-4b": 4, "gemma3-4b": 1}
 #: the kernels' launches that phase 12 reports per model (its rows)
 DENSE_ROWS = ("flash_attention", "flash_attention_bwd_delta",
               "flash_attention_bwd_dq", "flash_attention_bwd_dkv",
@@ -4878,10 +4926,11 @@ def _registry_config(arch: str, cfg):
 
 
 def _dense_cut(cfg, arch: str):
-    """The card-vs-CPU depth: 2 layers, gemma3-4b one period of its
-    pattern (5 local layers and 1 global)."""
+    """The card-vs-CPU depth: 2 layers; gemma3-4b one period of its
+    pattern (5 local layers and 1 global), recurrentgemma-2b one period of
+    its (RG-LRU, RG-LRU, local MQA)."""
     seg = cfg.stack.segments[0]
-    n = 1 if arch == "gemma3-4b" else 2
+    n = 1 if arch in ("gemma3-4b", "recurrentgemma-2b") else 2
     return dataclasses.replace(cfg, stack=dataclasses.replace(
         cfg.stack, segments=((seg[0], n),)))
 
@@ -4901,6 +4950,14 @@ def _pairs(B, H, S, window=0) -> float:
     reading at most ``window`` keys (0: all before it)."""
     w = window or S
     return B * H * (w * (w + 1) / 2 + (S - w) * w)
+
+
+def _n_attn(cfg, kind=("gqa", "mla"), windowed=None) -> int:
+    """A config's layers of the given block kinds (attention by default;
+    ``windowed`` True / False: only GQA layers with / without a window)."""
+    return sum(n * sum(1 for bd in defs if bd.kind in kind and (
+        windowed is None or bool(bd.window) == windowed))
+        for defs, n in cfg.stack.segments)
 
 
 def _attn_dims(cfg):
@@ -4926,7 +4983,7 @@ def _dense_attention(cfg, spec, dev, bw, tc_rate) -> dict:
     B, S = 2, spec["seq"]
     H, K, D, Dv = _attn_dims(cfg)
     windows = sorted({bd.window for defs, _ in cfg.stack.segments
-                      for bd in defs})
+                      for bd in defs if bd.kind in ("gqa", "mla")})
     gen = torch.Generator(device=dev).manual_seed(17)
     out = {}
     for w in windows:
@@ -5281,12 +5338,14 @@ def _timed_init(records: list):
 
 def dense_train(arch: str, spec: dict, device="cuda"):
     """Train ``arch`` at full width through the launcher (at the depth the
-    registry gives, which phases 12 and 13 cut with ``_registry_config``):
-    ``launch.train.main(--arch arch --seq S --rungs 1,2 --steps 10
-    --ladder gpu --mem-cap-gb 80)``. Launches exact: the forward 2 x L a
-    step on the tensor-core route (forward and remat recompute), delta, dQ
-    and dK/dV L a step (dQ and dK/dV on the tensor cores), one fused_stats
-    and fused_apply a step; no fallback, no OOM, finite losses.
+    registry gives, which phases 12-14 cut with ``_registry_config``):
+    ``launch.train.main(--arch arch --seq S --rungs R --steps 10
+    --ladder gpu --mem-cap-gb 80)``, R ``spec["rungs"]`` (default 1,2).
+    Launches exact, A the model's attention layers (all L of a dense
+    model, none of mamba2's): the forward 2 x A a step on the tensor-core
+    route (forward and remat recompute), delta, dQ and dK/dV A a step (dQ
+    and dK/dV on the tensor cores), one fused_stats and fused_apply a
+    step; no fallback, no OOM, finite losses.
     -> (trainer, launches, seconds of ``task.init``, wall seconds)."""
     import io
     import warnings
@@ -5294,7 +5353,8 @@ def dense_train(arch: str, spec: dict, device="cuda"):
     from repro_torch.kernels import ops
     from repro_torch.launch import train as launch_train
     args = ["--arch", arch, "--seq", str(spec["seq"]), "--rungs",
-            DENSE_RUNGS, "--steps", str(DENSE_STEPS), "--ladder", "gpu",
+            spec.get("rungs", DENSE_RUNGS), "--steps", str(DENSE_STEPS),
+            "--ladder", "gpu",
             "--mem-cap-gb", str(DENSE_MEM_CAP_GB), "--device", device]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -5311,6 +5371,7 @@ def dense_train(arch: str, spec: dict, device="cuda"):
         wall = time.perf_counter() - t0
     launches = dict(ops.LAUNCHES)
     L, steps = tr.task.cfg.num_layers, DENSE_STEPS
+    A = _n_attn(tr.task.cfg)
     fallbacks = [str(w.message) for w in caught
                  if "kernel gate failed" in str(w.message)]
     check(not fallbacks and not ops.WARNED_FALLBACKS,
@@ -5320,13 +5381,13 @@ def dense_train(arch: str, spec: dict, device="cuda"):
     lines = [json.loads(x) for x in printed.getvalue().splitlines()]
     check(lines and all(math.isfinite(m_["loss"]) for m_ in lines),
           f"{arch}: losses {lines}")
-    want = {"flash_attention": 2 * L * steps,
-            "flash_attention_tc": 2 * L * steps,
-            "flash_attention_bwd_delta": L * steps,
-            "flash_attention_bwd_dq": L * steps,
-            "flash_attention_bwd_dq_tc": L * steps,
-            "flash_attention_bwd_dkv": L * steps,
-            "flash_attention_bwd_dkv_tc": L * steps,
+    want = {"flash_attention": 2 * A * steps,
+            "flash_attention_tc": 2 * A * steps,
+            "flash_attention_bwd_delta": A * steps,
+            "flash_attention_bwd_dq": A * steps,
+            "flash_attention_bwd_dq_tc": A * steps,
+            "flash_attention_bwd_dkv": A * steps,
+            "flash_attention_bwd_dkv_tc": A * steps,
             "fused_stats": steps, "fused_apply": steps}
     for k, n in want.items():
         check(launches[k] == n, f"{arch}: {k}: {launches[k]} launches, "
@@ -5340,7 +5401,8 @@ def dense_train(arch: str, spec: dict, device="cuda"):
     log(f"{arch} training: launch.train.main({' '.join(args)}): {steps} "
         f"steps in {wall:.2f} s; task.init {inits[0]:.2f} s ({n} "
         f"parameters, seeded on the host, copied to the card), "
-        f"{L} layers, slab {tr.view.rows} x 512; peak allocated "
+        f"{L} layers ({A} with attention), slab {tr.view.rows} x 512; "
+        f"peak allocated "
         f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB; measured peak "
         f"bytes per rung { {k: int(v) for k, v in tr.measured_bytes.items()} }"
         f", rung history {tr.scaler.history}")
@@ -5356,12 +5418,13 @@ def dense_serve(arch: str, spec: dict, params, device="cuda",
     1 then 0, tier 0 pinned after 8 decode steps; tpu ladder: the tier-0
     set two-pass), ``DENSE_REQUESTS`` requests of ``DENSE_TOKENS`` tokens,
     four up front and the rest after three steps. Launches exact: the flash
-    forward L a prefill on the tensor-core route, flash_decode once a
-    decode step for each GQA layer whose cache the decode kernel takes
-    (unwindowed; gemma3-4b's 5 global layers, its 29 local ones on the
-    plain path; none for MLA, whose decode is the absorbed form), a
-    two-pass qdq_cast a leaf of a tier-0 set; no fallback. Then three
-    decode steps profiled."""
+    forward A a prefill on the tensor-core route (A the attention layers:
+    L of a dense model, none of mamba2's), flash_decode once a decode step
+    for each GQA layer whose cache the decode kernel takes (unwindowed;
+    gemma3-4b's 5 global layers, its 29 local ones on the plain path; none
+    for MLA, whose decode is the absorbed form, nor for recurrentgemma's
+    local layers), a two-pass qdq_cast a leaf of a tier-0 set; no
+    fallback. Then three decode steps profiled."""
     import warnings
     from repro_torch import tree as tu
     from repro_torch.kernels import ops
@@ -5369,12 +5432,11 @@ def dense_serve(arch: str, spec: dict, params, device="cuda",
     from repro_torch.serve import ServeConfig, ServeSession
     task = get_task(arch, device=device)
     L, vocab = task.cfg.num_layers, task.cfg.vocab_size
-    n_flash = sum(n * sum(1 for bd in defs
-                          if bd.kind == "gqa" and not bd.window)
-                  for defs, n in task.cfg.stack.segments)
-    n_mla = sum(n * sum(1 for bd in defs if bd.kind == "mla")
-                for defs, n in task.cfg.stack.segments)
-    n_local = L - n_flash - n_mla
+    A = _n_attn(task.cfg)
+    n_flash = _n_attn(task.cfg, ("gqa",), windowed=False)
+    n_mla = _n_attn(task.cfg, ("mla",))
+    n_local = _n_attn(task.cfg, ("gqa",), windowed=True)
+    n_rec = _n_attn(task.cfg, ("ssd", "rglru"))
     n_leaves = len(tu.leaves(params))
     cfg = ServeConfig(prompt_len=spec["prompt"], total_len=spec["total"],
                       rungs=(1, 2, 4), tiers=tuple(tiers), ladder="tpu",
@@ -5419,9 +5481,9 @@ def dense_serve(arch: str, spec: dict, params, device="cuda",
         r.status == "done" and len(r.tokens) == DENSE_TOKENS
         and all(0 <= t < vocab for t in r.tokens) for r in reqs.values()),
         f"{arch}: every request done")
-    check(launches["flash_attention"] == L * runs["admit"]
+    check(launches["flash_attention"] == A * runs["admit"]
           == launches["flash_attention_tc"],
-          f"{arch}: the flash forward L a prefill, tensor cores: "
+          f"{arch}: the flash forward {A} a prefill, tensor cores: "
           f"{launches} vs {runs}")
     check(launches["flash_decode"] == n_flash * runs["decode"],
           f"{arch}: flash_decode {n_flash} a decode step: {launches} vs "
@@ -5441,7 +5503,8 @@ def dense_serve(arch: str, spec: dict, params, device="cuda",
            for r in cfg.rungs for t in cfg.tiers if sess.lat.samples(r, t)}
     log(f"{arch} serving, tiers {cfg.tiers}: {L} layers ({n_flash} on "
         f"flash_decode, {n_local} local on the plain decode attention, "
-        f"{n_mla} MLA absorbed), {DENSE_REQUESTS} requests x "
+        f"{n_mla} MLA absorbed, {n_rec} recurrent), {DENSE_REQUESTS} "
+        f"requests x "
         f"{DENSE_TOKENS} tokens, prompt {cfg.prompt_len}, cache "
         f"{cfg.total_len}: session {t1 - t0:.2f} s, warm {t2 - t1:.2f} s, "
         f"serving {serve_s:.3f} s, {tokens / serve_s:.1f} tok/s, TTFT p50 "
@@ -5469,7 +5532,8 @@ def dense_serve(arch: str, spec: dict, params, device="cuda",
     sess.run()
     del sess
     return {"launches": launches, "runs": runs, "n_local": n_local,
-            "decode_busy_ms": prof["busy_ms"], "tok_s": tokens / serve_s,
+            "decode_busy_ms": prof["busy_ms"], "decode_ops": prof["ops"],
+            "tok_s": tokens / serve_s, "lat_ms": lat,
             "peak": peak, "session_s": t1 - t0}
 
 
@@ -5485,7 +5549,8 @@ def dense_against_cpu(arch: str, spec: dict, cut, steps: int = 4,
     from repro_torch.models.registry import get_model_config
     from repro_torch.serve.engine import scatter_prefill
     cfg = _dense_cut(get_model_config(arch), arch)
-    prompt, total = spec["cpu_prompt"], DENSE_CPU_TOTAL
+    prompt = spec["cpu_prompt"]
+    total = spec.get("cpu_total", DENSE_CPU_TOTAL)
     g = torch.Generator().manual_seed(4)
     toks = torch.randint(0, cfg.vocab_size, (1, prompt), generator=g,
                          dtype=torch.int32)
@@ -5520,6 +5585,7 @@ def dense_against_cpu(arch: str, spec: dict, cut, steps: int = 4,
         f"{secs[card]:.1f} s")
     check(bool(torch.isfinite(got).all()), f"{arch}: finite card logits")
     check(gap <= lim, f"{arch}: card vs CPU logits {gap} > {lim}")
+    return {"gap": gap, "limit": lim, "same_argmax": float(same_top)}
 
 
 def dense_phase(card: str, dev, bw, f32_ops, tc_ops) -> dict:
@@ -5607,10 +5673,15 @@ MOE_ARCH = "deepseek-v2-lite-16b"
 #: the training sequence, the serving prompt and cache, the card-vs-CPU
 #: prompt
 MOE = dict(seq=1024, prompt=1024, total=2048, cpu_prompt=1024)
-#: training depth: the dense layer 0 and this many MoE layers, the most
-#: whose peak at rung 2 fits the card (7: 64.5 GB; 8 ran out of memory in
-#: its third step on an H100 80GB HBM3; PERF.md section 4)
-MOE_TRAIN_MOE_LAYERS = 7
+#: training depth: the dense layer 0 and this many MoE layers (7, the most
+#: whose peak at rung 2 fits the card, peaked at 64.5 GB; 8 ran out of
+#: memory in its third step on an H100 80GB HBM3; PERF.md section 4); 1,
+#: to keep the whole script inside its clock
+MOE_TRAIN_MOE_LAYERS = 1
+#: the fused update's check runs on the slab of the dense layer and this
+#: many MoE layers, untrained: 8,973,568 x 512 = 4.59 G elements, past
+#: 2^32 (every other model's slab is below it)
+MOE_FUSED_MOE_LAYERS = 7
 #: card vs CPU: a prompt, then teacher-forced decode steps, at layers 0
 #: (dense FFN) and 1 (MoE); logits within this share of their largest
 #: magnitude, as phases 4 and 12
@@ -5855,10 +5926,11 @@ def moe_phase(card: str, dev, bw, f32_ops, tc_ops) -> dict:
     cut = _moe_cut(full, MOE_TRAIN_MOE_LAYERS)
     log(f"{MOE_ARCH}: kernels at its shapes ({card})")
     rows = _dense_attention(full, MOE, dev, bw, tc_ops)
-    task = LMTask(cut, device="cpu")
+    slab_cfg = _moe_cut(full, MOE_FUSED_MOE_LAYERS)
+    task = LMTask(slab_cfg, device="cpu")
     like, _ = task.init(torch.Generator(), device="meta")
     rows.update(_dense_fused(slab_view(like, task.grouping(like)), dev, bw,
-                             f32_ops, f"{MOE_ARCH} x{cut.num_layers}"))
+                             f32_ops, f"{MOE_ARCH} x{slab_cfg.num_layers}"))
     del like
     gc.collect()
     torch.cuda.empty_cache()
@@ -5921,6 +5993,145 @@ def moe_phase(card: str, dev, bw, f32_ops, tc_ops) -> dict:
     return {"rows": rows, "launches": launches}
 
 
+# ----------------------- phase 14: the recurrent architectures -------------
+#: per model: the training sequence and rungs, the serving prompt and cache
+#: (recurrentgemma's past its 2048-slot rings, so they wrap while decoding),
+#: the card-vs-CPU prompt and cache
+RECURRENT = {
+    "mamba2-370m": dict(seq=1024, rungs="2,4,8", prompt=1024, total=2048,
+                        cpu_prompt=1024),
+    "recurrentgemma-2b": dict(seq=4096, rungs="1,2", prompt=2048,
+                              total=4096, cpu_prompt=2048, cpu_total=4096),
+}
+#: the kernels each model's paths launch (its rows): mamba2 runs no
+#: attention, so no flash kernel; neither model's decode takes flash_decode
+RECURRENT_ROWS = {
+    "mamba2-370m": ("fused_stats", "fused_apply", "qdq_cast"),
+    "recurrentgemma-2b": ("flash_attention", "flash_attention_bwd_delta",
+                          "flash_attention_bwd_dq", "flash_attention_bwd_dkv",
+                          "fused_stats", "fused_apply", "qdq_cast"),
+}
+_FLASH_KEYS = ("flash_attention", "flash_attention_bwd_delta",
+               "flash_attention_bwd_dq", "flash_attention_bwd_dkv",
+               "flash_decode")
+
+
+def _prefill_forward(cfg, spec, dev, bw, tc_rate) -> dict:
+    """The tensor-core forward against its plain version at the serving
+    prefill's shape (B 1, S the prompt, the model's heads and window),
+    timed beside the plain version, SDPA with the window's mask and the
+    bound -> the ``prefill_*`` keys of the forward's row."""
+    from repro_torch.kernels import flash_attention as fa
+    B, S = 1, spec["prompt"]
+    H, K, D, Dv = _attn_dims(cfg)
+    w = max(bd.window for defs, _ in cfg.stack.segments for bd in defs)
+    gen = torch.Generator(device=dev).manual_seed(19)
+    q, k, v = (torch.randn(sh, generator=gen, device=dev).to(torch.bfloat16)
+               for sh in ((B, S, H, D), (B, S, K, D), (B, S, K, Dv)))
+    kw = dict(causal=True, window=w)
+    what = f"{cfg.name} prefill attention B{B} S{S} {H}/{K} D{D} window {w}"
+    err = _flash_pair(q, k, v, None, kw, what, "tc")
+    i = torch.arange(S, device=dev)
+    mask = (i[None, :] <= i[:, None]) & (i[:, None] - i[None, :] < w)
+    ms = time_ms(lambda: fa.flash_attention_cuda(q, k, v, **kw), iters=10,
+                 reps=3)
+    plain = time_ms(lambda: fa.flash_attention_ref(q, k, v, **kw), iters=2,
+                    reps=2)
+    lib = time_ms(lambda: _sdpa(q, k, v, attn_mask=mask), iters=10, reps=3)
+    b_ms, by = bound(2 * B * S * (H * D + K * D + K * Dv + H * Dv),
+                     _pairs(B, H, S, w) * 2 * (D + Dv), bw, tc_rate)
+    log(f"  {what}: kernel {ms:.4f} ms, plain {plain:.4f}, sdpa {lib:.4f}, "
+        f"bound {b_ms:.4f} ({by}), max|err| {err:.3g}")
+    return {"prefill_max_abs_err": err, "prefill_ms": ms,
+            "prefill_plain_ms": plain, "prefill_library_ms": lib,
+            "prefill_bound_ms": b_ms, "prefill_bound_by": by}
+
+
+def recurrent_phase(card: str, dev, bw, f32_ops, tc_ops) -> dict:
+    """Phase 14: mamba2-370m and recurrentgemma-2b. For each, its kernels
+    against their plain versions at its shapes, training at full width
+    through the launcher (three more steps timed, one profiled), the
+    trained weights served at full width and depth through tiers 1 and 0,
+    then the card-vs-CPU check on its first layers.
+    -> {arch: {"rows": {kernel: result}, "launches": {kernel: launches on
+    the model's main paths}}}."""
+    from repro_torch import tree as tu
+    from repro_torch.kernels.layout import slab_view
+    from repro_torch.models.registry import get_model_config
+    from repro_torch.train.task import LMTask
+    t_phase = time.perf_counter()
+    log(f"phase 14 starts with {torch.cuda.memory_allocated() / 1e9:.3f} GB "
+        "allocated on the card")
+    out = {}
+    for arch, spec in RECURRENT.items():
+        t_model = time.perf_counter()
+        cfg = get_model_config(arch)
+        log(f"{arch}: kernels at its shapes ({card})")
+        rows = {}
+        if _n_attn(cfg):
+            rows.update(_dense_attention(cfg, spec, dev, bw, tc_ops))
+            pre = _prefill_forward(cfg, spec, dev, bw, tc_ops)
+            fwd = rows["flash_attention"]
+            fwd["max_abs_err"] = max(fwd["max_abs_err"],
+                                     pre["prefill_max_abs_err"])
+            fwd.update(pre)
+        task = LMTask(cfg, device="cpu")
+        like, _ = task.init(torch.Generator(), device="meta")
+        rows.update(_dense_fused(slab_view(like, task.grouping(like)), dev,
+                                 bw, f32_ops, arch))
+        del like
+        gc.collect()
+        torch.cuda.empty_cache()
+        tr, tl, init_s, train_s = dense_train(arch, spec)
+        step_ms = []
+        for _ in range(3):              # unprofiled steps at the top rung
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            tr.run(1)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+        log(f"{arch}: a train step at rung {tr.scaler.microbatch}, S "
+            f"{spec['seq']}: {statistics.median(step_ms):.1f} ms (median of "
+            f"3: {[round(x, 1) for x in step_ms]})")
+        profile_lm_step(tr)
+        params = tr.params_tree()
+        del tr
+        gc.collect()
+        torch.cuda.empty_cache()
+        n_cut = _dense_cut(cfg, arch).stack.segments[0][1]
+        cut = tu.tree_map(lambda x: x.to(torch.bfloat16).cpu(),
+                          _dense_cut_params(params, n_cut))
+        rows["qdq_cast"] = _dense_qdq(params, dev, bw, f32_ops)
+        sv = dense_serve(arch, spec, params)
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+        vs = dense_against_cpu(arch, spec, cut)
+        del cut
+        check(sv["launches"]["flash_decode"] == 0,
+              f"{arch}: no flash_decode (no unwindowed attention cache)")
+        if not _n_attn(cfg):
+            check(not any(tl.get(k, 0) or sv["launches"][k]
+                          for k in _FLASH_KEYS),
+                  f"{arch}: no attention kernel on an attention-free model")
+        launches = {k: tl.get(k, 0) for k in RECURRENT_ROWS[arch]}
+        if "flash_attention" in launches:
+            launches["flash_attention"] += sv["launches"]["flash_attention"]
+        launches["qdq_cast"] = sv["launches"]["qdq_cast"]
+        out[arch] = {"rows": {k: rows[k] for k in RECURRENT_ROWS[arch]},
+                     "launches": launches}
+        log(f"{arch}: task.init {init_s:.1f} s, training {train_s:.1f} s, "
+            f"serving {sv['tok_s']:.1f} tok/s, median decode step ms by "
+            f"rung/tier {sv['lat_ms']}, a decode step {sv['decode_ops']:.0f} "
+            f"device ops and {sv['decode_busy_ms']:.3f} ms busy, card vs CPU "
+            f"max|dlogit| {vs['gap']:.4g}; the model's part of phase 14 "
+            f"{time.perf_counter() - t_model:.1f} s ({card})")
+        gc.collect()
+        torch.cuda.empty_cache()
+    log(f"phase 14 in {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
 CHILDREN = {"train-real-oom": real_oom, "serve-real-oom": serve_real_oom}
 
 
@@ -5939,6 +6150,9 @@ def main() -> int:
     ap.add_argument("--moe-only", action="store_true",
                     help="build, then run phase 13 (deepseek-v2-lite-16b, "
                          "MLA and MoE) alone; prints no result line")
+    ap.add_argument("--recurrent-only", action="store_true",
+                    help="build, then run phase 14 (mamba2-370m and "
+                         "recurrentgemma-2b) alone; prints no result line")
     ap.add_argument("--child", choices=sorted(CHILDREN),
                     help=argparse.SUPPRESS)   # a check's own process
     args = ap.parse_args()
@@ -5991,6 +6205,9 @@ def main() -> int:
         return 0
     if args.moe_only:
         moe_phase(card, dev, bw, f32_ops, tc_ops)
+        return 0
+    if args.recurrent_only:
+        recurrent_phase(card, dev, bw, f32_ops, tc_ops)
         return 0
     t_phase = time.perf_counter()
     view = vision_view()
@@ -6171,6 +6388,15 @@ def main() -> int:
     for k, r in d["rows"].items():
         res[f"{k}@{MOE_ARCH}"] = r
         launches[f"{k}@{MOE_ARCH}"] = d["launches"][k]
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the recurrent architectures: each model's kernels at its shapes, then
+    # its training and serving main paths with their counts read around them
+    for arch, d in recurrent_phase(card, dev, bw, f32_ops, tc_ops).items():
+        for k, r in d["rows"].items():
+            res[f"{k}@{arch}"] = r
+            launches[f"{k}@{arch}"] = d["launches"][k]
 
     rows = [{"name": rname, "route": "cuda", "source": src,
              "replaces": replaces, "launches": launches[rname],

@@ -50,6 +50,25 @@
 //     dS^T = P^T (dP^T - delta[col]) index lse and delta by the column
 //     (the q row); dV += P^T dO and dK += dS^T Q use register-A wgmma with
 //     dO and Q MN-major. dK is scaled once at the end.
+//   * Long GQA sums are split by q head. Where the caller gives f32
+//     workspaces (B, S, H, *) (flash_attention.dkv_workspace does where a
+//     block would sum more than 64 (q head, q tile) pairs, (H/K) (S/64)
+//     of them), one block per (64 keys, q head, batch row) writes its
+//     head's unscaled f32 partials there, and dkv_reduce_kernel sums each
+//     group's heads in order, scales and rounds to bf16 once. One block
+//     summing every pair of its group in one wgmma accumulator strayed
+//     past the stated tolerance at recurrentgemma-2b's shape (rep 10,
+//     S 4096, D 256: 640 pairs, 5,120 accumulations; 1 of 2.1 M dK
+//     elements at window 2048, 9 dK and 3 dV unwindowed), more the longer
+//     the sum; split, each chain is one head's q tiles long. At 64 pairs
+//     and below (rep 2 at S 2048, rep 3 at S 1024, rep 1 at S 4096) one
+//     accumulator held the tolerance, and split always, gemma3-4b's shape
+//     (rep 2, S 2048) took 1.01 ms on an H100, so those sums stay whole.
+//     The kernel is a template on SPLIT, so whole sums run the unsplit
+//     code alone (a runtime switch in one instantiation slowed them at
+//     head dims 192 and 256). The head-dim-256 instantiation has no
+//     registers to spare: a flush of the accumulators inside the loop
+//     spilled.
 //   * Causal grids put the longest blocks first: a dQ block's work grows
 //     with its q tile, a dK/dV block's shrinks with its k tile, and the
 //     tile index is the grid's slowest axis.
@@ -112,6 +131,8 @@ struct Params {
   int S, H, K, D, Dv, causal, window;
   float scale;             // softmax scale
   float scale_log2;        // scale * log2(e)
+  float* dk_ws;            // (B, S, H, D) f32 per-head partials (SPLIT)
+  float* dv_ws;            // (B, S, H, Dv) f32 (SPLIT)
 };
 
 // 64-column boxes a head dim of `d` takes
@@ -160,6 +181,25 @@ __device__ __forceinline__ void store_rows(const float (&acc)[N][32],
         *reinterpret_cast<__nv_bfloat162*>(row1 + col) =
             __floats2bfloat162_rn(acc[c][4 * j + 2] * mul,
                                   acc[c][4 * j + 3] * mul);
+      }
+    }
+}
+
+// the same rows in f32, unscaled, into `row0` / `row1`
+template <int N>
+__device__ __forceinline__ void store_rows_f32(const float (&acc)[N][32],
+                                               float* row0, float* row1,
+                                               int n, int tig) {
+#pragma unroll
+  for (int c = 0; c < N; ++c)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int col = c * BOX + 8 * j + 2 * tig;
+      if (col < n) {
+        *reinterpret_cast<float2*>(row0 + col) =
+            make_float2(acc[c][4 * j], acc[c][4 * j + 1]);
+        *reinterpret_cast<float2*>(row1 + col) =
+            make_float2(acc[c][4 * j + 2], acc[c][4 * j + 3]);
       }
     }
 }
@@ -338,8 +378,9 @@ struct DkvTiles {
 // block's 64 keys; each pass writes the accumulators it owns. NMAX is the
 // larger chunk count of D and Dv (the accumulators' width); the products
 // run over the runtime counts NQ, NV <= NMAX. KN = q rows of a sub-tile
-// (S^T and dP^T are taken 64 x KN at a time).
-template <int NMAX, int KN, int MODE>
+// (S^T and dP^T are taken 64 x KN at a time). SPLIT: the block sums one
+// q head of the group (blockIdx.x's) into the f32 workspaces.
+template <int NMAX, int KN, int MODE, bool SPLIT>
 __device__ __forceinline__ void dkv_pass(const Params& p, const DkvTiles& t,
                                          int& stage, uint32_t& phase,
                                          int k0, int g, int b,
@@ -352,11 +393,13 @@ __device__ __forceinline__ void dkv_pass(const Params& p, const DkvTiles& t,
   const int tig = lane & 3;
   const int r0 = warp * 16 + (lane >> 2), r1 = r0 + 8;   // key rows
   const int rep = p.H / p.K;
+  // SPLIT: this block's one head of the group
+  const int r_end = SPLIT ? (int)blockIdx.x % rep + 1 : rep;
 
   float dk[DK ? NMAX : 1][32], dv[DV ? NMAX : 1][32];
   zero(dk);
   zero(dv);
-  for (int r = 0; r < rep; ++r) {
+  for (int r = SPLIT ? r_end - 1 : 0; r < r_end; ++r) {
     for (int qt = qt_begin; qt < qt_end; ++qt) {
       const int q0 = qt * TILE;
       if (!tile_needed(p.causal, p.window, segrow, q0, k0))   // uniform
@@ -461,6 +504,16 @@ __device__ __forceinline__ void dkv_pass(const Params& p, const DkvTiles& t,
     }
   }
 
+  if constexpr (SPLIT) {   // this q head's f32 partials; dkv_reduce sums
+    const long w0 = (long)(b * p.S + k0 + r0) * p.H + blockIdx.x;
+    const long w1 = w0 + 8L * p.H;
+    if (DK)
+      store_rows_f32(dk, p.dk_ws + w0 * p.D, p.dk_ws + w1 * p.D, p.D, tig);
+    if (DV)
+      store_rows_f32(dv, p.dv_ws + w0 * p.Dv, p.dv_ws + w1 * p.Dv, p.Dv,
+                     tig);
+    return;
+  }
   // dK was taken against unscaled Q: it carries the scale once
   const long row0 = (long)(b * p.S + k0 + r0) * p.K + g;
   const long row1 = (long)(b * p.S + k0 + r1) * p.K + g;
@@ -471,7 +524,8 @@ __device__ __forceinline__ void dkv_pass(const Params& p, const DkvTiles& t,
 }
 
 // NMAX = max(ceil(D/64), ceil(Dv/64)). Two blocks an SM at head dims <= 64.
-template <int NMAX>
+// SPLIT: blockIdx.x is the q head, else the kv head.
+template <int NMAX, bool SPLIT>
 __global__ void __launch_bounds__(THREADS, NMAX == 1 ? 2 : 1)
     bwd_dkv_tc_kernel(const __grid_constant__ CUtensorMap tq,
                       const __grid_constant__ CUtensorMap tk,
@@ -496,10 +550,13 @@ __global__ void __launch_bounds__(THREADS, NMAX == 1 ? 2 : 1)
   uint64_t* empty = bars + STAGES;
   uint64_t* own_full = bars + 2 * STAGES;
 
-  const int g = blockIdx.x, b = blockIdx.y, kt = blockIdx.z;
+  const int rep = p.H / p.K;
+  // the kv head: blockIdx.x, or with SPLIT the q head's group
+  const int g = SPLIT ? (int)blockIdx.x / rep : (int)blockIdx.x;
+  const int b = blockIdx.y, kt = blockIdx.z;
   const int k0 = kt * TILE;
   const int nq = p.S / TILE;
-  const int rep = p.H / p.K;
+  const int r_end = SPLIT ? (int)blockIdx.x % rep + 1 : rep;
   const int* segrow = p.seg ? p.seg + (long)b * p.S : nullptr;
   const int qt_begin = p.causal ? kt : 0;
   const int qt_end =
@@ -517,7 +574,7 @@ __global__ void __launch_bounds__(THREADS, NMAX == 1 ? 2 : 1)
     int stage = 0;
     uint32_t phase = 0;
     for (int pass = 0; pass < PASSES; ++pass)
-      for (int r = 0; r < rep; ++r) {
+      for (int r = SPLIT ? r_end - 1 : 0; r < r_end; ++r) {
         const int h = g * rep + r;
         const long lrow = ((long)b * p.H + h) * p.S;
         for (int qt = qt_begin; qt < qt_end; ++qt) {
@@ -548,14 +605,45 @@ __global__ void __launch_bounds__(THREADS, NMAX == 1 ? 2 : 1)
   uint32_t phase = 0;
   mbar_wait(own_full, 0);
   if constexpr (PASSES == 1) {
-    dkv_pass<NMAX, KN, BOTH>(p, t, stage, phase, k0, g, b, segrow, qt_begin,
-                             qt_end);
+    dkv_pass<NMAX, KN, BOTH, SPLIT>(p, t, stage, phase, k0, g, b, segrow,
+                                    qt_begin, qt_end);
   } else {
-    dkv_pass<NMAX, KN, DV_ONLY>(p, t, stage, phase, k0, g, b, segrow,
-                                qt_begin, qt_end);
-    dkv_pass<NMAX, KN, DK_ONLY>(p, t, stage, phase, k0, g, b, segrow,
-                                qt_begin, qt_end);
+    dkv_pass<NMAX, KN, DV_ONLY, SPLIT>(p, t, stage, phase, k0, g, b, segrow,
+                                       qt_begin, qt_end);
+    dkv_pass<NMAX, KN, DK_ONLY, SPLIT>(p, t, stage, phase, k0, g, b, segrow,
+                                       qt_begin, qt_end);
   }
+}
+
+// dK or dV of each kv head from its q heads' f32 partials: out[row] = mul
+// * (ws[row, 0] + ws[row, 1] + ... + ws[row, rep-1]), rounded once to bf16;
+// rows over (B, S, K), ws (B, S, H = K rep, n). A thread a column pair.
+__global__ void dkv_reduce_kernel(const float* __restrict__ ws,
+                                  __nv_bfloat16* __restrict__ out,
+                                  long pairs, int rep, int half, float mul) {
+  const long i = (long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= pairs) return;
+  const long row = i / half;
+  const float2* src =
+      reinterpret_cast<const float2*>(ws) + row * rep * half + (i - row * half);
+  float2 acc = src[0];
+  for (int r = 1; r < rep; ++r) {
+    const float2 x = src[(long)r * half];
+    acc.x += x.x;
+    acc.y += x.y;
+  }
+  reinterpret_cast<__nv_bfloat162*>(out)[i] =
+      __floats2bfloat162_rn(acc.x * mul, acc.y * mul);
+}
+
+int dkv_reduce(const float* ws, void* out, long rows, int rep, int n,
+               float mul, cudaStream_t st) {
+  const long pairs = rows * (n / 2);
+  const int threads = 256;
+  dkv_reduce_kernel<<<(unsigned)((pairs + threads - 1) / threads), threads,
+                      0, st>>>(ws, static_cast<__nv_bfloat16*>(out), pairs,
+                               rep, n / 2, mul);
+  return (int)cudaGetLastError();
 }
 
 // ------------------------------------------------------------- host -----
@@ -577,6 +665,18 @@ int launch(Kern kern, size_t smem, dim3 grid, const CUtensorMap (&m)[4],
   if (e != cudaSuccess) return (int)e;
   kern<<<grid, THREADS, smem, st>>>(m[0], m[1], m[2], m[3], p);
   return (int)cudaGetLastError();
+}
+
+// the dK/dV kernel of NMAX n, whole groups or split by q head
+template <bool SPLIT>
+int launch_dkv(int n, dim3 grid, size_t smem, const CUtensorMap (&m)[4],
+               const Params& p, cudaStream_t st) {
+  switch (n) {
+    case 1: return launch(bwd_dkv_tc_kernel<1, SPLIT>, smem, grid, m, p, st);
+    case 2: return launch(bwd_dkv_tc_kernel<2, SPLIT>, smem, grid, m, p, st);
+    case 3: return launch(bwd_dkv_tc_kernel<3, SPLIT>, smem, grid, m, p, st);
+    default: return launch(bwd_dkv_tc_kernel<4, SPLIT>, smem, grid, m, p, st);
+  }
 }
 
 // checks shared by both entry points, then the four tensor maps: q, k, v, dO
@@ -626,27 +726,33 @@ int tri_flash_bwd_dq_tc(const void* q, const void* k, const void* v,
   }
 }
 
-// as tri_flash_bwd_dq_tc, writing dk (B,S,K,D) and dv (B,S,K,Dv)
+// as tri_flash_bwd_dq_tc, writing dk (B,S,K,D) and dv (B,S,K,Dv). Given
+// dk_ws and dv_ws (f32, (B,S,H,D) and (B,S,H,Dv), 8-byte aligned;
+// overwritten), it splits by q head into them and sums after; null, each
+// block sums its whole group (the caller decides: dkv_workspace)
 int tri_flash_bwd_dkv_tc(const void* q, const void* k, const void* v,
                          const void* dout, const float* lse,
                          const float* delta, const int* seg, void* dk,
-                         void* dv, int B, int S, int H, int K, int D, int Dv,
-                         int causal, int window, float scale, void* stream) {
+                         void* dv, float* dk_ws, float* dv_ws, int B, int S,
+                         int H, int K, int D, int Dv, int causal, int window,
+                         float scale, void* stream) {
   CUtensorMap m[4];
-  const int rc = prepare(m, q, k, v, dout, lse, delta, B, S, H, K, D, Dv);
+  int rc = prepare(m, q, k, v, dout, lse, delta, B, S, H, K, D, Dv);
   if (rc) return rc;
+  const bool split = dk_ws != nullptr;
+  if (split != (dv_ws != nullptr)) return (int)cudaErrorInvalidValue;
   const Params p{lse, delta, seg, nullptr, static_cast<__nv_bfloat16*>(dk),
                  static_cast<__nv_bfloat16*>(dv), S, H, K, D, Dv, causal,
-                 window, scale, scale * LOG2E};
-  const dim3 grid(K, B, S / TILE);
+                 window, scale, scale * LOG2E, dk_ws, dv_ws};
   const size_t smem = dkv_tc_smem(D, Dv);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (chunks(D > Dv ? D : Dv)) {
-    case 1: return launch(bwd_dkv_tc_kernel<1>, smem, grid, m, p, st);
-    case 2: return launch(bwd_dkv_tc_kernel<2>, smem, grid, m, p, st);
-    case 3: return launch(bwd_dkv_tc_kernel<3>, smem, grid, m, p, st);
-    default: return launch(bwd_dkv_tc_kernel<4>, smem, grid, m, p, st);
-  }
+  const int n = chunks(D > Dv ? D : Dv);
+  if (!split) return launch_dkv<false>(n, dim3(K, B, S / TILE), smem, m, p, st);
+  rc = launch_dkv<true>(n, dim3(H, B, S / TILE), smem, m, p, st);
+  if (rc) return rc;
+  const long rows = (long)B * S * K;
+  rc = dkv_reduce(dk_ws, dk, rows, H / K, D, scale, st);
+  return rc ? rc : dkv_reduce(dv_ws, dv, rows, H / K, Dv, 1.f, st);
 }
 
 }  // extern "C"

@@ -444,7 +444,8 @@ def _tc_bwd_lib() -> ctypes.CDLL:
     if lib.tri_flash_bwd_dq_tc.argtypes is None:   # first use: the ABI
         lib.tri_flash_bwd_dq_tc.argtypes = [_P] * 8 + [_I] * 8 + [_F, _P]
         lib.tri_flash_bwd_dq_tc.restype = _I
-        lib.tri_flash_bwd_dkv_tc.argtypes = [_P] * 9 + [_I] * 8 + [_F, _P]
+        lib.tri_flash_bwd_dkv_tc.argtypes = [_P] * 11 + [_I] * 8 + [_F,
+                                                                   _P]
         lib.tri_flash_bwd_dkv_tc.restype = _I
     return lib
 
@@ -629,6 +630,28 @@ def flash_bwd_dq_cuda(q, k, v, do, lse, delta, segments=None, *,
     return dq
 
 
+#: (q head, q tile) pairs a tensor-core dK/dV block sums in one
+#: accumulator; above, ``dkv_workspace`` gives the kernel workspaces and
+#: it splits by q head
+DKV_SPLIT_TILES = 64
+
+
+def dkv_workspace(k, v, H: int):
+    """The tensor-core dK/dV kernel's f32 workspaces where a block's GQA
+    sum would exceed ``DKV_SPLIT_TILES`` pairs ((H/K) (S/64) of them), else
+    (None, None): (B, S, H, D) and (B, S, H, Dv), each q head's partial dK
+    and dV, which the kernel's reduction sums over the group in f32
+    (``flash_bwd_sm90.cu``'s header). The kernel splits exactly when it
+    is given them."""
+    B, S, K = k.shape[0], k.shape[1], k.shape[2]
+    if (H // K) * (S // 64) <= DKV_SPLIT_TILES:
+        return None, None
+    return (torch.empty((B, S, H, k.shape[3]), dtype=torch.float32,
+                        device=k.device),
+            torch.empty((B, S, H, v.shape[3]), dtype=torch.float32,
+                        device=v.device))
+
+
 def flash_bwd_dkv_cuda(q, k, v, do, lse, delta, segments=None, *,
                        causal: bool = True, window: int = 0,
                        scale: Optional[float] = None):
@@ -648,7 +671,10 @@ def flash_bwd_dkv_cuda(q, k, v, do, lse, delta, segments=None, *,
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         if route == "tc":
-            rc = _tc_bwd_lib().tri_flash_bwd_dkv_tc(*ins, *dims, stream)
+            ws = dkv_workspace(k, v, H)
+            rc = _tc_bwd_lib().tri_flash_bwd_dkv_tc(
+                *ins, *(w.data_ptr() if w is not None else None for w in ws),
+                *dims, stream)
         else:
             fn = (_tf32_bwd_lib().tri_flash_bwd_dkv_tf32 if route == "tf32"
                   else _bwd_lib().tri_flash_bwd_dkv)

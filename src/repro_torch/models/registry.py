@@ -1,7 +1,7 @@
 """Architecture registry: --arch ids -> config modules and tasks, as
 ``repro/models/registry.py``. ``ARCHITECTURES`` and ``PAPER_ARCHS`` are
 the reference's lists. The port trains and serves the LMs in ``PORTED``
-(dense and MoE) and trains ``resnet18`` and ``efficientnet_b0``; the other
+(dense, MoE, SSM and hybrid RG-LRU) and trains ``resnet18`` and ``efficientnet_b0``; the other
 architectures raise ``NotImplementedError`` until the slice that brings
 them."""
 from __future__ import annotations
@@ -30,14 +30,14 @@ PORTED = {"smollm-135m": "smollm_135m", "gemma3-4b": "gemma3_4b",
           "minitron-4b": "minitron_4b", "stablelm-1.6b": "stablelm_1_6b",
           "deepseek-v2-236b": "deepseek_v2_236b",
           "deepseek-v2-lite-16b": "deepseek_v2_lite_16b",
+          "mamba2-370m": "mamba2_370m",
+          "recurrentgemma-2b": "recurrentgemma_2b",
           "resnet18": "resnet18", "efficientnet_b0": "efficientnet_b0"}
 
 #: the reference's other architectures and the slice that ports each
 PENDING = {
     "qwen2-vl-72b": "the vlm slice (frontend embeddings, multimodal RoPE)",
-    "mamba2-370m": "the SSM slice",
     "seamless-m4t-large-v2": "the encoder-decoder slice",
-    "recurrentgemma-2b": "the RG-LRU slice",
 }
 
 

@@ -6,14 +6,16 @@ reference's ``lax.scan`` layout, so weights cross unchanged); the port
 walks that axis with a Python loop. Caches are stacked the same way,
 (layers, B, ...), and updated in place by decode.
 
-Ported so far: ``gqa`` and ``mla`` mixing with the dense FFN or the MoE
-FFN, in the ``train``, ``prefill`` and ``decode`` modes. In train mode each
+Ported so far: ``gqa`` and ``mla`` attention, ``ssd`` (Mamba-2) and
+``rglru`` (Griffin) mixing, with the dense FFN, the MoE FFN or none, in
+the ``train``, ``prefill`` and ``decode`` modes. In train mode each
 layer runs under ``torch.utils.checkpoint`` when ``remat`` (the
 reference's ``jax.checkpoint``), so backward recomputes it; the in-loss
 precision emulation (``codes``/``qdq_fn`` of ``reference_step``) rounds
 each layer's weights inside that checkpoint. The MoE aux terms are summed
-over the layers in train mode, through the checkpoints. SSM, RG-LRU and
-cross-attention blocks wait for their slices.
+over the layers in train mode, through the checkpoints. The recurrent
+blocks' decode caches are state rows (f32, no sequence axis) that decode
+overwrites in place. Cross-attention blocks wait for their slice.
 """
 from __future__ import annotations
 
@@ -27,16 +29,20 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch import tree as tu
 from repro_torch.nn import attention as attn_lib
 from repro_torch.nn import moe as moe_lib
+from repro_torch.nn import rglru as rglru_lib
+from repro_torch.nn import ssm as ssm_lib
 from repro_torch.nn.attention import AttnConfig, MLAConfig
 from repro_torch.nn.layers import (activation, dense, dense_init, rmsnorm,
                                    rmsnorm_init)
 from repro_torch.nn.module import stack_init as _stacked
 from repro_torch.nn.moe import MoEConfig
+from repro_torch.nn.rglru import RGLRUConfig
+from repro_torch.nn.ssm import SSMConfig
 
 
 @dataclasses.dataclass(frozen=True)
 class BlockDef:
-    kind: str                 # "gqa" | "mla" (others wait for their slices)
+    kind: str                 # "gqa" | "mla" | "ssd" | "rglru"
     ffn: str = "dense"        # "dense" | "moe" | "none"
     window: int = 0           # 0 = global attention; > 0 = sliding window
     cross: bool = False       # decoder block with cross-attention
@@ -49,6 +55,8 @@ class StackConfig:
     d_ff: int
     attn: Optional[AttnConfig] = None
     mla: Optional[MLAConfig] = None
+    ssm: Optional[SSMConfig] = None
+    rglru: Optional[RGLRUConfig] = None
     moe: Optional[MoEConfig] = None
     act: str = "silu"
     gated: bool = True        # SwiGLU-style gated FFN vs plain 2-matrix MLP
@@ -60,13 +68,25 @@ class StackConfig:
         return sum(len(defs) * n for defs, n in self.segments)
 
 
+#: the mixing kinds -> (their init, their StackConfig field)
+_MIX_INIT = {"gqa": (attn_lib.gqa_init, "attn"),
+             "mla": (attn_lib.mla_init, "mla"),
+             "ssd": (ssm_lib.ssm_init, "ssm"),
+             "rglru": (rglru_lib.rglru_init, "rglru")}
+#: the recurrent kinds -> (sequence forward, one-step decode, their
+#: StackConfig field)
+_RECURRENT = {"ssd": (ssm_lib.ssm_fwd, ssm_lib.ssm_decode, "ssm"),
+              "rglru": (rglru_lib.rglru_fwd, rglru_lib.rglru_decode,
+                        "rglru")}
+
+
 def _check_block(bd: BlockDef) -> None:
-    if bd.kind not in ("gqa", "mla") or bd.ffn not in ("dense", "moe",
-                                                        "none") or bd.cross:
+    if bd.kind not in _MIX_INIT or bd.ffn not in ("dense", "moe", "none") \
+            or bd.cross:
         raise NotImplementedError(
-            f"block {bd} is not ported yet: the port runs gqa and mla blocks "
-            "with dense or MoE FFNs (the other kinds come with their "
-            "architectures)")
+            f"block {bd} is not ported yet: the port runs gqa, mla, ssd and "
+            "rglru blocks with dense, MoE or no FFNs (cross-attention comes "
+            "with the encoder-decoder slice)")
 
 
 # ------------------------------------------------------------------ FFN ----
@@ -91,8 +111,8 @@ def ffn_apply(p, x, act_name):
 def block_init(gen, bd: BlockDef, sc: StackConfig, device="cpu"):
     _check_block(bd)
     p: Dict[str, Any] = {"norm1": rmsnorm_init(gen, sc.d_model, device)}
-    p["mix"] = (attn_lib.mla_init(gen, sc.mla, device) if bd.kind == "mla"
-                else attn_lib.gqa_init(gen, sc.attn, device))
+    init, field = _MIX_INIT[bd.kind]
+    p["mix"] = init(gen, getattr(sc, field), device)
     if bd.ffn != "none":
         p["norm2"] = rmsnorm_init(gen, sc.d_model, device)
         p["ffn"] = (moe_lib.moe_init(gen, sc.moe, device) if bd.ffn == "moe"
@@ -108,6 +128,10 @@ def block_init_cache(bd: BlockDef, sc: StackConfig, batch: int, length: int,
     if bd.kind == "mla":
         return {"mix": attn_lib.mla_init_cache(sc.mla, batch, length, dtype,
                                                device)}
+    if bd.kind == "ssd":
+        return {"mix": ssm_lib.ssm_init_cache(sc.ssm, batch, device)}
+    if bd.kind == "rglru":
+        return {"mix": rglru_lib.rglru_init_cache(sc.rglru, batch, device)}
     L = min(length, bd.window) if bd.window > 0 else length
     return {"mix": attn_lib.gqa_init_cache(sc.attn, batch, L, dtype,
                                            device)}
@@ -124,7 +148,16 @@ def _block_fwd(p, x, pos, bd: BlockDef, sc: StackConfig, mode: str,
     c = None
     if mode not in ("train", "prefill", "decode"):
         raise ValueError(f"unknown mode {mode!r}")
-    if bd.kind == "mla":
+    if bd.kind in _RECURRENT:
+        fwd, dec, field = _RECURRENT[bd.kind]
+        cfg = getattr(sc, field)
+        if mode == "decode":
+            y, c = dec(p["mix"], h, cache["mix"], cfg)
+        elif mode == "prefill":
+            y, c = fwd(p["mix"], h, cfg, return_cache=True)
+        else:
+            y = fwd(p["mix"], h, cfg)
+    elif bd.kind == "mla":
         if mode == "decode":
             y, c = attn_lib.mla_decode(p["mix"], h, cache["mix"], index,
                                        sc.mla)

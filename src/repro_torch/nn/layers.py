@@ -88,9 +88,22 @@ def _const(value: float, x: torch.Tensor) -> torch.Tensor:
     return torch.tensor(value, dtype=x.dtype)
 
 
+def _sigmoid(x):
+    """``jax.nn.sigmoid``: the logistic as XLA expands it, 1 / (1 + exp(-x))."""
+    return 1.0 / (1.0 + torch.exp(-x))
+
+
 def _silu(x):
-    # x * logistic(x), the logistic as XLA expands it: 1 / (1 + exp(-x))
-    return x * (1.0 / (1.0 + torch.exp(-x)))
+    return x * _sigmoid(x)
+
+
+def softplus(x):
+    """``jax.nn.softplus``, which is ``jnp.logaddexp(x, 0)``: max(x, 0) +
+    log1p(exp(-|x|)) at every x, as ``torch.logaddexp`` computes it.
+    ``torch.nn.functional.softplus`` returns x itself above its threshold
+    (20) and log1p(exp(x)) below it."""
+    return torch.logaddexp(x, torch.zeros((), dtype=x.dtype,
+                                          device=x.device))
 
 
 def _relu(x):
@@ -144,3 +157,39 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+# ---------------------------------------------------- causal depthwise conv -
+def causal_conv1d_init(gen, dim: int, width: int, use_bias: bool = True,
+                       device="cpu"):
+    p = {"kernel": param(gen, (width, dim), "normal", 1.0 / width, device)}
+    if use_bias:
+        p["bias"] = param(gen, (dim,), "zeros", device=device)
+    return p
+
+
+def causal_conv1d(p, x: torch.Tensor) -> torch.Tensor:
+    """Depthwise causal conv over a sequence. x: (batch, seq, dim), in x's
+    dtype: the ``width`` shifted products summed in the reference's order
+    (Python's ``sum``, from the oldest tap), then the bias."""
+    width, S = p["kernel"].shape[0], x.shape[1]
+    pad = torch.nn.functional.pad(x, (0, 0, width - 1, 0))
+    k = p["kernel"].to(x.dtype)
+    y = sum(pad[:, i:i + S, :] * k[i] for i in range(width))
+    if "bias" in p:
+        y = y + p["bias"].to(x.dtype)
+    return y
+
+
+def causal_conv1d_step(p, x: torch.Tensor, conv_state: torch.Tensor):
+    """One decode step. x: (batch, dim); conv_state: (batch, width-1, dim),
+    the last width-1 inputs. -> (y (batch, dim), conv_state), the state
+    shifted by one row and ``x`` appended IN PLACE: the window is built in
+    a fresh tensor first, so the shift reads nothing it has written."""
+    k = p["kernel"].to(x.dtype)
+    full = torch.cat([conv_state.to(x.dtype), x[:, None, :]], dim=1)
+    y = torch.einsum("bwd,wd->bd", full, k)
+    if "bias" in p:
+        y = y + p["bias"].to(x.dtype)
+    conv_state.copy_(full[:, 1:, :])
+    return y, conv_state

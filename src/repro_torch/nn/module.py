@@ -22,7 +22,10 @@ def param(gen: torch.Generator, shape: Sequence[int], init: str = "normal",
           dtype=torch.float32) -> torch.Tensor:
     """init: "normal" (truncated normal on [-2, 2], fan-in scaled unless
     ``scale`` is given), "embed" (normal times ``scale``, default 1),
-    "zeros" or "ones"."""
+    "zeros", "ones", "mamba_alog" (``log(1 + 15 U[0, 1))``: Mamba-2's
+    A = -exp(A_log) over [-16, -1)) or "uniform" (LeCun-uniform,
+    U[-sqrt(3 / fan_in), sqrt(3 / fan_in)), or U[-scale, scale) when
+    ``scale`` is given)."""
     shape = tuple(int(s) for s in shape)
     dev = torch.device(device)
     if dev.type == "meta":
@@ -42,6 +45,14 @@ def param(gen: torch.Generator, shape: Sequence[int], init: str = "normal",
         value = torch.randn(shape, dtype=dtype, generator=gen,
                             device=gen.device)
         value = value * (1.0 if scale is None else scale)
+    elif init == "mamba_alog":
+        u = torch.rand(shape, dtype=dtype, generator=gen, device=gen.device)
+        value = torch.log(1.0 + 15.0 * u)
+    elif init == "uniform":
+        lim = (math.sqrt(3.0 / max(1, shape[0] if shape else 1))
+               if scale is None else scale)
+        u = torch.rand(shape, dtype=dtype, generator=gen, device=gen.device)
+        value = -lim + 2.0 * lim * u
     else:
         raise ValueError(f"unknown init {init!r}")
     return value.to(dev)

@@ -76,6 +76,20 @@ def _map_named(fn, tree, *rest, name=""):
     return fn(name, tree, *rest)
 
 
+#: cache leaves indexed by sequence slot, (layers, B, L, ...): attention's
+#: keys, values and positions, MLA's compressed cache. Every other leaf
+#: (the recurrent blocks' ``ssm``, ``conv`` and ``h``) is a state row that
+#: a decode step overwrites whole.
+SEQUENCE_LEAVES = frozenset({"k", "v", "pos", "ckv", "kr"})
+
+
+def _named_leaves(tree, name=""):
+    """[(the leaf's own key, leaf)] in the sorted-key leaf order."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _named_leaves(tree[k], k)]
+    return [(name, tree)]
+
+
 def scatter_prefill(caches, pre, slot: int):
     """Scatter ONE request's prefill caches (batch dim 1) into row ``slot``
     of the batched decode caches, in place; returns ``caches``.
@@ -221,24 +235,27 @@ class ServeEngine:
         index_t = self._tensor(index_np, torch.int32)
         inv = (np.flatnonzero(~np.asarray(valid, bool).reshape(rung))
                if valid is not None else np.zeros((0,), np.int64))
-        saved = None
+        saved = []
         if inv.size:
-            # the step writes each row's slot index % L; keep those of the
-            # invalid rows and put them back after (the reference selects
-            # the old rows with jnp.where(valid, new, old))
+            # keep what the step writes in the invalid rows and put it back
+            # after (the reference selects the old rows with
+            # jnp.where(valid, new, old)): a sequence leaf's slot index % L,
+            # L that leaf's own length (a windowed layer's ring is shorter
+            # than the cache), and a state leaf's whole row
             rows = self._tensor(inv, torch.int64)
-            slots = self._tensor(index_np[inv] % self.total_len,
-                                 torch.int64)
-            saved = [(c, c[:, rows, slots].clone())
-                     for c in tu.leaves(caches)]
+            for name, c in _named_leaves(caches):
+                at = (rows,)
+                if name in SEQUENCE_LEAVES:
+                    at = (rows, self._tensor(index_np[inv] % c.shape[2],
+                                             torch.int64))
+                saved.append((c, at, c[(slice(None),) + at].clone()))
         with self._path(("decode", rung, tier)):
             try:
                 out, caches = make_decode_fn(self.task)(
                     self.params_by_tier[tier], caches, token_t, index_t)
             finally:
-                if saved is not None:
-                    for c, old in saved:
-                        c[:, rows, slots] = old
+                for c, at, old in saved:
+                    c[(slice(None),) + at] = old
         self.runs["decode"] += 1
         return out, caches
 

@@ -5,7 +5,9 @@ batches from the reference's ``LMTaskStream``.
 
   * The registry: ``ARCHITECTURES``, ``PAPER_ARCHS`` and
     ``list_architectures()`` equal the reference's; ``PENDING`` holds the
-    four not ported yet (the two deepseek archs are in ``PORTED``);
+    two not ported yet (the two deepseek archs, mamba2-370m and
+    recurrentgemma-2b are in ``PORTED``, the last two with their
+    configs);
     ``list_tasks()`` the ported ones in the reference's order.
   * The full configs: the ``LMConfig`` fields equal the reference's, the
     parameter tree (``lm_init`` on ``meta``) has the reference's paths and
@@ -105,15 +107,22 @@ def _np(x):
     return a.astype(np.float32) if a.dtype == ml_dtypes.bfloat16 else a
 
 
-def _leafwise(got, want, rel, what):
-    """Each leaf of ``got`` within ``rel`` of its reference leaf's largest
-    magnitude."""
-    got, want = tu.leaves(got), jax.tree.leaves(want)
+def _rel_for(path, rel, loose):
+    """``rel``, or the bound ``loose`` ({leaf key: rel}) gives a leaf whose
+    path holds one of its keys."""
+    return next((r for k, r in (loose or {}).items() if k in path), rel)
+
+
+def _leafwise(got, want, rel, what, loose=None):
+    """Each leaf of ``got`` within ``rel`` (or its ``loose`` bound) of its
+    reference leaf's largest magnitude."""
+    paths, got, want = tu.paths(got), tu.leaves(got), jax.tree.leaves(want)
     assert len(got) == len(want)
     for i, (g, w) in enumerate(zip(got, want)):
         w = _np(w)
         gap = float(np.abs(_np(g) - w).max())
-        assert gap <= rel * float(np.abs(w).max()), (what, i, gap)
+        bound = _rel_for(paths[i], rel, loose) * float(np.abs(w).max())
+        assert gap <= bound, (what, paths[i], gap)
 
 
 @pytest.fixture(autouse=True)
@@ -154,10 +163,16 @@ def test_registry_names_match_reference():
     assert registry.PAPER_ARCHS == jregistry.PAPER_ARCHS
     assert registry.list_architectures() == jregistry.list_architectures()
     deepseek = {"deepseek-v2-lite-16b", "deepseek-v2-236b"}
-    assert deepseek <= set(registry.PORTED)
+    recurrent = {"mamba2-370m", "recurrentgemma-2b"}
+    assert deepseek | recurrent <= set(registry.PORTED)
     assert set(registry.PENDING) == set(jregistry.ARCHITECTURES) - {
-        "smollm-135m", *ARCHS, *deepseek}
-    assert len(registry.PENDING) == 4
+        "smollm-135m", *ARCHS, *deepseek, *recurrent}
+    assert len(registry.PENDING) == 2
+    for arch in recurrent:
+        cfg = registry.get_model_config(arch)
+        assert cfg.name == arch == jregistry.get_model_config(arch).name
+        assert registry.get_model_config(arch, reduced=True).num_layers == \
+            jregistry.get_model_config(arch, reduced=True).num_layers
     assert registry.list_tasks() == [a for a in jregistry.list_tasks()
                                      if a in registry.PORTED]
     for arch in registry.PENDING:
@@ -197,7 +212,7 @@ def test_full_config_and_parameter_shapes_match_reference(arch):
 
 
 # ------------------------------------------------- the reduced models ----
-def check_loss_and_grad_match_reference(ref):
+def check_loss_and_grad_match_reference(ref, loose=None):
     vg = jax.jit(jax.value_and_grad(
         lambda p, b: jlm.lm_loss(p, b, ref["cfg"]), has_aux=True))
     (jtotal, jm), jg = vg(ref["params"], ref["batch"])
@@ -209,7 +224,7 @@ def check_loss_and_grad_match_reference(ref):
                                rtol=1e-4)
     assert int(m["tokens"]) == int(jm["tokens"]) == B * S
     _leafwise(tu.unflatten(tu.flatten(params)[1], list(grads)), jg, 5e-2,
-              "grad")
+              "grad", loose)
 
 
 def _bf16(tree):
@@ -274,7 +289,7 @@ def check_prefill_and_decode_past_the_ring_match_reference(ref):
             range(P + DECODE - 8, P + DECODE))
 
 
-def check_resident_step_matches_reference(ref):
+def check_resident_step_matches_reference(ref, loose=None):
     task, params, grouping = ref["task"], ref["params"], ref["grouping"]
     tac, opt = JTac(**TAC), jsgdm(0.9, 5e-4)
     view = jslab_view(params, grouping)
@@ -311,9 +326,9 @@ def check_resident_step_matches_reference(ref):
                                rtol=1e-4)
     p0, p, jp = state.params.numpy(), _np(new.params), _np(jnew.params)
     mo, jmo = _np(new.opt_state["mu"]), _np(jnew.opt_state["mu"])
-    for slot in view.slots:                           # leaf by leaf
+    for path, slot in zip(tu.paths(like), view.slots):   # leaf by leaf
         rows = slice(slot.row_off, slot.row_off + slot.stack * slot.rows_per)
-        bound = 5e-2 * np.abs(jmo[rows]).max()
+        bound = _rel_for(path, 5e-2, loose) * np.abs(jmo[rows]).max()
         assert np.abs(mo[rows] - jmo[rows]).max() <= bound, slot.shape
     lr = float(jm["lr"])
     assert float(m["lr"]) == lr

@@ -111,6 +111,25 @@ def test_bwd_tc_smem_fits_at_every_tc_head_dim():
                for D in TC_DIMS for Dv in TC_DIMS)
 
 
+def test_dkv_workspace_where_gqa_splits_by_head():
+    """Where a block's GQA sum would pass ``DKV_SPLIT_TILES`` (q head, q
+    tile) pairs, (H/K) (S/64), the dK/dV kernel splits by q head into f32
+    workspaces of the q heads, (B, S, H, D) and (B, S, H, Dv), and sums
+    each group's heads after: the wrapper gives them there and none
+    elsewhere (the kernel splits exactly when it is given them)."""
+    assert fa.DKV_SPLIT_TILES == 64
+    for S, H, K, split in ((4096, 4, 4, False), (1024, 9, 3, False),
+                           (2048, 8, 4, False), (4096, 8, 4, True),
+                           (4096, 10, 1, True), (2048, 10, 1, True)):
+        k = torch.zeros((2, S, K, 64), dtype=BF16)
+        v = torch.zeros((2, S, K, 32), dtype=BF16)
+        ws_k, ws_v = fa.dkv_workspace(k, v, H)
+        assert (ws_k is not None) == (ws_v is not None) == split
+        if split:
+            assert ws_k.dtype == ws_v.dtype == torch.float32
+            assert ws_k.shape == (2, S, H, 64) and ws_v.shape == (2, S, H, 32)
+
+
 @pytest.mark.parametrize("D,dq_bytes,dkv_bytes", [
     (64, 50_216, 51_240), (128, 99_368, 100_392), (256, 197_672, 198_696)])
 def test_bwd_tc_smem_equals_the_kernel_source(D, dq_bytes, dkv_bytes):
